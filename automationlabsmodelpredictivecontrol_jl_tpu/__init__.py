@@ -1,6 +1,6 @@
-"""TPU-native Model Predictive Control framework.
+"""Model Predictive Control framework in JAX.
 
-A from-scratch JAX/XLA/Pallas re-design of the capability matrix of
+A from-scratch JAX/XLA re-design of the capability matrix of
 ``AutomationLabs-sh/AutomationLabsModelPredictiveControl.jl`` (importable
 form of "automationlabsmodelpredictivecontrol.jl_tpu"):
 
@@ -10,25 +10,25 @@ form of "automationlabsmodelpredictivecontrol.jl_tpu"):
 - in-house structured solvers instead of OSQP/Ipopt/SCIP: a batched,
   design-time-factorized ADMM QP engine and an SQP engine with jacfwd
   linearization — vmap over thousands of scenarios, shard_map over a
-  TPU mesh.
+  device mesh.
 """
 
 import os as _os
 
 import jax as _jax
 
-# A bare `@` lowers to 1-pass bf16 on the TPU MXU (~1e-2 relative error)
-# — catastrophic for a solver library whose convergence certificates sit
-# at 1e-6 and whose parity bar is 1e-4 (found in r4: multiple shooting
-# converged 64/64 on CPU, 0/64 on TPU, defects pinned at the bf16 floor).
-# Hot paths pin precision explicitly; this package-level default covers
-# everything else (user cost callables, future code). It is skipped when
-# the user already chose a default, and can be opted out entirely with
-# MPC_TPU_NO_GLOBAL_PRECISION=1 for processes that share unrelated
-# matmul-heavy work (the package's own solves stay exact either way via
-# the explicit pins).
+# On the GPU a bare f32 `@` may run in TF32 (about 3 decimal digits) —
+# fatal for a solver library whose convergence certificates sit at 1e-6
+# and whose parity bar is 1e-4 (the same failure class as 1-pass bf16:
+# multiple shooting then stalls with its defects pinned at the rounding
+# floor). Hot paths pin precision explicitly; this package-level default
+# covers everything else (user cost callables, future code). It is
+# skipped when the user already chose a default, and can be opted out
+# entirely with MPC_NO_GLOBAL_PRECISION=1 for processes that share
+# unrelated matmul-heavy work (the package's own solves stay exact either
+# way via the explicit pins).
 if (
-    _os.environ.get("MPC_TPU_NO_GLOBAL_PRECISION") != "1"
+    _os.environ.get("MPC_NO_GLOBAL_PRECISION") != "1"
     and _jax.config.jax_default_matmul_precision is None
 ):
     _jax.config.update("jax_default_matmul_precision", "highest")

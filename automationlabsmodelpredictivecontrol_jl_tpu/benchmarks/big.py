@@ -2,10 +2,9 @@
 
 Every reference fixture is the 4-state/2-input QTP
 (modeler_implementation_test.jl:40-62). MPC problems in production span
-wider state spaces, and on TPU the solver's MXU utilization *improves*
-with operator size (less 128-lane padding waste) — so the framework's
-scaling in nx/nu deserves its own measured row rather than extrapolation
-from a tiny plant.
+wider state spaces, and the solver's cost per solve changes shape with
+operator size — so the framework's scaling in nx/nu deserves its own
+measured row rather than extrapolation from a tiny plant.
 """
 
 from __future__ import annotations

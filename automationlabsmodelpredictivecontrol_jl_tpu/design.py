@@ -81,13 +81,12 @@ class RiccatiEngine:
 
 
 # horizon at which design's engine="auto" switches the linear path from the
-# condensed O((N nu)^2) engine to the O(N) Riccati engine. MEASURED on TPU
-# v5e (QTP nx=4/nu=2, B=2048-4096, auto rho, round 3): the condensed engine
-# wins every horizon up to 400 (h200: 11.7k vs 5.2k solves/s; h400: 3.3k vs
-# 2.9k) and the O(N) engine takes over by 800 (1.42k vs 0.71k — 2x); the
-# interpolated per-iteration crossover sits near N~500. The flop-count
-# estimate that put this at 40 in round 2 ignored how well XLA pipelines
-# the big condensed GEMMs vs the Riccati sweeps' sequential dependency.
+# condensed O((N nu)^2) engine to the O(N) Riccati engine. Chosen from
+# measurements on another accelerator (QTP nx=4/nu=2, B=1024-4096, auto
+# rho), where the condensed engine won every horizon up to 400 and the O(N)
+# engine won by 800; a flop count puts the crossover far lower because it
+# ignores how well XLA pipelines the big condensed GEMMs against the
+# Riccati sweeps' sequential dependency. Not yet measured on the H100.
 RICCATI_AUTO_HORIZON = 500
 
 

@@ -6,7 +6,7 @@ polynet,neuralode,rknn1,rknn2,rknn4,physical}). The reference *transcribes*
 these nets neuron-by-neuron into JuMP constraints (fnn/...:125-144); here
 each family is a pure JAX function ``apply(params, x, u) -> x_next`` that
 the SQP solver rolls out / linearizes directly — no constraint-row
-materialization, dynamics stay as fused MXU matmuls.
+materialization, dynamics stay as fused matmuls.
 
 Shared architecture convention (mirrors the Flux.params unpacking at
 fnn/...:88-107): input layer (nx+nu → n) with bias, ``depth`` hidden blocks
@@ -419,10 +419,9 @@ def make_apply(family: str, activation: str = None) -> Tuple[Callable, str]:
     deterministic rebuild used by checkpoint load (io.py).
 
     The dynamics evaluate under ``default_matmul_precision("highest")``:
-    on TPU a bare ``@`` lowers to 1-pass bf16 on the MXU, which floors the
-    model forward at ~1e-2 relative error — found in r4 as multiple
-    shooting converging 64/64 on CPU but 0/64 on TPU with the defect
-    residual pinned at the bf16 noise floor (9.2e-3), far above the 1e-4
+    a reduced-precision ``@`` (TF32 on the GPU, bf16 passes on other
+    accelerators) floors the model forward at ~1e-3..1e-2 relative error,
+    which pins the multiple-shooting defect residual far above the 1e-4
     feasibility gate. The dynamics model is the physics: its evaluation
     precision bounds every honesty gate downstream (defects, rollout
     violations, merit comparisons), so it is pinned here at the source.

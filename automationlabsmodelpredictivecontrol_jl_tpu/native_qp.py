@@ -1,8 +1,9 @@
 """ctypes bindings for the native C++ QP reference solver (native/qpref).
 
 The in-house f64 oracle / host fallback mirroring the reference's native
-OSQP surface (solver_selection.jl:92-98). Builds the shared library on
-first use (g++ is part of the baked toolchain); no pybind11 needed.
+OSQP surface (solver_selection.jl:92-98). Builds the shared library from
+native/qpref/qpref.cpp with ``make`` on first use (a C++17 compiler is the
+only requirement; the library is not kept in git); no pybind11 needed.
 """
 
 from __future__ import annotations
@@ -21,8 +22,27 @@ _lib = None
 
 
 def _build() -> None:
-    subprocess.run(
-        ["make", "-C", _NATIVE_DIR], check=True, capture_output=True, text=True
+    """Build libqpref.so from qpref.cpp with ``make``. Concurrent processes
+    (test workers) serialize on a lock file, and the library is linked
+    under a temporary name and renamed into place, so no process ever loads
+    a half-written file."""
+    import fcntl
+
+    with open(os.path.join(_NATIVE_DIR, ".build.lock"), "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if _stale():
+            tmp = f"libqpref.so.{os.getpid()}.tmp"
+            subprocess.run(
+                ["make", "-C", _NATIVE_DIR, f"OUT={tmp}"],
+                check=True, capture_output=True, text=True,
+            )
+            os.replace(os.path.join(_NATIVE_DIR, tmp), _LIB_PATH)
+
+
+def _stale() -> bool:
+    src = os.path.join(_NATIVE_DIR, "qpref.cpp")
+    return not os.path.exists(_LIB_PATH) or (
+        os.path.exists(src) and os.path.getmtime(src) > os.path.getmtime(_LIB_PATH)
     )
 
 
@@ -30,10 +50,7 @@ def _load() -> ctypes.CDLL:
     global _lib
     if _lib is not None:
         return _lib
-    src = os.path.join(_NATIVE_DIR, "qpref.cpp")
-    if not os.path.exists(_LIB_PATH) or (
-        os.path.exists(src) and os.path.getmtime(src) > os.path.getmtime(_LIB_PATH)
-    ):
+    if _stale():
         _build()
     lib = ctypes.CDLL(_LIB_PATH)
     dp = ctypes.POINTER(ctypes.c_double)

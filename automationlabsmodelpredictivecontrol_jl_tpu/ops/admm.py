@@ -1,14 +1,13 @@
-"""Batched OSQP-style ADMM QP solver, TPU-native.
+"""Batched OSQP-style ADMM QP solver in JAX.
 
 In-house replacement for the reference's native OSQP back-end (C, reached
 via solver_selection.jl:92-98). Same operator-splitting algorithm
 (ADMM with relaxation, Ruiz equilibration, per-row penalty), redesigned for
-the TPU execution model:
+batched accelerator execution:
 
 - The KKT system (P + sigma*I + A' diag(rho) A) is factorized (inverted)
   ONCE at controller-design time — the iteration body is then nothing but
-  dense matvecs, so a vmapped batch of solves compiles to large GEMMs that
-  tile onto the MXU.
+  dense matvecs, so a vmapped batch of solves compiles to batched GEMMs.
 - Fixed-shape, branchless inner loop: `lax.while_loop` whose predicate
   vectorizes under vmap into "run until every lane converged" (adaptive
   mode), or a fixed-cost `fori_loop` with diagnostics hoisted out of the
@@ -66,8 +65,8 @@ class AdmmConfig:
     # OSQP uses 1e3 (in f64); in the f32 hot loop a 1e3 equality-row rho
     # amplifies roundoff past the residual tolerance — 1e2 converges.
     rho_eq_scale: float = 1e2
-    # adaptive-rho grid: OSQP refactorizes its KKT on every rho update; the
-    # TPU design prefactorizes K^{-1} for a log-spaced grid once at design
+    # adaptive-rho grid: OSQP refactorizes its KKT on every rho update;
+    # here K^{-1} is prefactorized for a log-spaced grid once at design
     # time and the iteration *selects* (per vmap lane) the best operator
     # from the residual ratio — no factorization in the hot loop.
     rho_grid: tuple = (0.01, 0.1, 1.0, 10.0, 100.0)
@@ -79,38 +78,6 @@ class AdmmConfig:
     refine_steps: int = 1
     scaling_iters: int = 10
     adaptive: bool = True  # while_loop early exit vs fixed-cost fori_loop
-    # MXU dot precision inside the fused Pallas kernel (ops/admm_pallas.py)
-    # — the convergence DIAGNOSTICS always run f32 HIGHEST outside the
-    # kernel, so statuses/residuals stay exact regardless:
-    #   "highest": f32 via 6 bf16 MXU passes (default — bitwise-stable)
-    #   "bf16x3":  manual 3-pass bf16 split (hi/lo decomposition) — half
-    #              the MXU passes; measured on TPU v5e (see CHANGELOG r4)
-    #   "default": 1-pass bf16 (documented: stalls the iteration at
-    #              eps 1e-6 — kept for the record)
-    #   "hybrid":  per-chunk schedule (r5, VERDICT r4 item 2): chunks run
-    #              bf16x3 while the worst ACTIVE lane's unscaled residual
-    #              exceeds hybrid_switch_residual, then switch to f32
-    #              HIGHEST for the contraction to the 1e-6 certificate.
-    #              Certification is unchanged (between-chunk diagnostics
-    #              are exact f32 HIGHEST). MEASURED r5 (TPU v5e, h20,
-    #              B=16k): on the v3 diag kernel the schedule is a WASH —
-    #              7.18 vs 7.09 ms — because bf16x3 chunks contract slower
-    #              (mean iterations 78 vs 53), cancelling the 2x cheaper
-    #              passes; on the dense state-constrained kernel the
-    #              bf16x3 residual floor sits ABOVE any safe switch
-    #              threshold and convergence collapses (17/8192 vs
-    #              3371/8192 at the default config). The r4 1.22x bf16x3
-    #              speedup was real but belonged to the v2 dense kernel
-    #              whose MXU passes dominated; v3 removed that bottleneck.
-    #              Hence HIGHEST stays the default; "hybrid" remains for
-    #              the record and for future pass-dominated shapes.
-    kernel_precision: str = "highest"
-    # residual threshold for the "hybrid" bf16x3 -> f32 switch; compared
-    # against max(r_prim, r_dual) over not-yet-converged lanes. The bf16x3
-    # iteration's measured residual floor on the headline shape is
-    # ~1.2e-3 worst-lane (r5, TPU v5e) — the switch must sit ABOVE it or
-    # the schedule never leaves bf16x3
-    hybrid_switch_residual: float = 2e-3
 
 
 @pytree_dataclass
@@ -133,16 +100,10 @@ class AdmmOperator:
     n_ball: int = static_field()
     # A_s is square and DIAGONAL (box-only QP: every constraint row is a
     # scaled decision-variable bound). Detected at build time; the fused
-    # kernel then replaces every A-side GEMM with VPU elementwise work and
-    # runs the transposed small-K layout (ops/admm_pallas._iterate_diag) —
-    # the headline h20 config is exactly this shape (r5, VERDICT item 1).
+    # chunk kernel (ops/admm_pallas.py) takes exactly these operators and
+    # does every A-side product elementwise — the headline h20 config is
+    # this shape.
     diag_a: bool = static_field(default=False)
-    # MIXED structure (r5): the first n rows of A_s are diagonal (the
-    # input-box block — true for every condensed MPC the designer builds)
-    # and the remaining rows are dense (state boxes / terminal set). The
-    # transposed mixed kernel does the box block on the VPU and only the
-    # dense tail on the MXU (ops/admm_pallas._iterate_kernel_mixed).
-    mixed_a: bool = static_field(default=False)
 
 
 @pytree_dataclass
@@ -213,7 +174,7 @@ def build_operator(
 
     Host-side, float64 internally (runs once per controller design — the
     analogue of the reference's JuMP model build, SURVEY call stack 3.1),
-    stored float32 for the TPU runtime hot loop.
+    stored float32 for the device hot loop.
     """
     P64 = np.asarray(P, np.float64)
     A64 = np.asarray(A, np.float64)
@@ -239,14 +200,6 @@ def build_operator(
         and m == n
         and np.count_nonzero(A_s - np.diag(np.diag(A_s))) == 0
     )
-    top = A_s[:n, :] if m >= n else None
-    mixed_a = bool(
-        n_ball == 0
-        and not diag_a
-        and m > n
-        and top is not None
-        and np.count_nonzero(top - np.diag(np.diag(top))) == 0
-    )
     f32 = lambda x: jnp.asarray(x, jnp.float32)
     return AdmmOperator(
         P_s=f32(P_s),
@@ -261,18 +214,17 @@ def build_operator(
         c=jnp.asarray(c, jnp.float32),
         n_ball=n_ball,
         diag_a=diag_a,
-        mixed_a=mixed_a,
     )
 
 
 def newton_schulz_inverse(K: Array, iters: int = 40) -> Array:
-    """MXU-only inverse of a (well-posed) small square matrix.
+    """Matmul-only inverse of a (well-posed) small square matrix.
 
     Newton-Schulz iteration X <- X (2I - K X) from the classic
     X0 = K' / (||K||_1 ||K||_inf) seed: quadratically convergent, and —
     unlike jnp.linalg.inv's column-sequential LU — composed purely of
     dense matmuls, which is what a vmapped batch of small factorizations
-    needs on TPU (the LU path was the SQP design loop's hottest op).
+    needs (the LU path was the SQP design loop's hottest op).
 
     Iteration count (r4 review correction — measured, f32): with this
     seed the initial residual spectrum reaches 1 - 1/kappa^2, and the
@@ -314,7 +266,7 @@ def build_operator_traced(
     Used where the QP matrices are themselves traced values — e.g. the LTV
     Gauss-Newton subproblems inside the SQP loop, re-built every outer
     iteration. Runs a few Ruiz sweeps in jnp and factorizes K with the
-    MXU-only Newton-Schulz inverse (jnp.linalg.inv lowers to a
+    matmul-only Newton-Schulz inverse (jnp.linalg.inv lowers to a
     column-sequential LU — slow for a vmapped batch of small matrices).
     eq_row_mask must be a *static* numpy bool array (row structure is
     static even when values are traced).
@@ -398,7 +350,7 @@ def build_operator_traced(
         E=E,
         c=c,
         n_ball=n_ball,
-        diag_a=bool(identity_A),
+        diag_a=bool(identity_A) and n_ball == 0,
     )
 
 
@@ -500,16 +452,17 @@ def solve(
 
     # A_s' diag(rho_r): (R, n, m), tiny — lets the all-rho x-update run as
     # shared-matrix GEMMs instead of per-lane K_inv gathers (a (B,n,n)
-    # gather per iteration is pure HBM traffic and dominates on TPU).
+    # gather per iteration is pure device-memory traffic; whether that
+    # still holds on the GPU is not measured).
     AtRho = op.A_s.T[None] * op.rho_vecs[:, None, :]
 
     def step(x, s, y, Ax, idx):
         """One ADMM iteration (scaled space) with the grid-selected rho.
 
         For R > 1 the candidate x-update is computed for EVERY grid rho with
-        shared-weight GEMMs (R x (B,n)@(n,n) under vmap — MXU-tiled), and
-        the lane's rho just *selects* a candidate. R times the FLOPs of one
-        update, but no gathered per-lane matrices — far cheaper on TPU."""
+        shared-weight GEMMs (R x (B,n)@(n,n) under vmap), and the lane's rho
+        just *selects* a candidate. R times the FLOPs of one update, but no
+        gathered per-lane matrices."""
         if R == 1:
             rho_vec, rho_inv = op.rho_vecs[0], op.rho_invs[0]
             rhs = sigma * x - q_s + _mv(op.A_s.T, rho_vec * s - y)

@@ -1,45 +1,33 @@
-"""Pallas-fused batched ADMM iterator (TPU kernel).
+"""Fused batched ADMM for box-only QPs: one Pallas-Triton kernel per chunk.
 
-The jax engine (ops/admm.py) expresses one ADMM iteration as ~12 small
-GEMMs + elementwise ops; under `vmap` + `while_loop` every iteration round-
-trips the solver state (x, s, y, Ax — a few MB) through HBM and pays
-per-op dispatch overhead, leaving the chip >100x below peak.
+The plain engine (ops/admm.py under ``vmap``) spends each ADMM iteration
+on about a dozen small XLA ops, and each one streams the lane state
+(x, s, y, Ax) through device memory. For a box-only QP — the condensed
+input-box MPC, whose constraint matrix is square and diagonal — the only
+algorithmically necessary matrix work per iteration is the K-solve. This
+kernel runs ``check_interval`` iterations per launch with the lane state
+held in registers, so one chunk reads and writes the state once.
 
-This kernel fuses `chunk` iterations into ONE launch per scenario block:
-state lives in VMEM registers for the whole chunk, the rho-grid candidate
-x-updates are straight `jnp.dot`s on the MXU, and per-lane rho selection is
-a masked sum over the (small) grid axis. The outer driver (jax) runs
-convergence diagnostics + OSQP rho adaptation between chunks, so statuses
-and residuals stay exact.
+Layout (Hopper, through Triton):
 
-Hard box rows only (the contractive ball block and soft rows stay on the
-jax engine). Kernel-authoring rules followed here: static shapes only,
-operands tiled to the f32 min tile (8, 128), every dot pinned with
-preferred_element_type=f32, lane state resident in VMEM across the whole
-chunk, grid only over the scenario axis (see docs/engines.md for the
-measured routing between this kernel and the vmapped XLA engine).
+- lane-major ``(BLK, n_pad)`` state, ``n`` padded to a power of two; the
+  grid runs over independent lane blocks;
+- the K-solve is ONE IEEE-fp32 dot per iteration for all R rho-grid
+  entries: each lane's right-hand side is masked into its own rho slot of
+  a (BLK, R_pad*n_pad) operand and multiplied by the stacked
+  [K_0^{-T}; ..; K_{R-1}^{-T}] (R padded to a power of two with zero
+  blocks that no lane selects), so the product is already each lane's
+  own candidate;
+- refinement steps add one dot against the stacked K_r and one against
+  the stacked inverses;
+- every A-side product is elementwise (A is diagonal), and A x is d * x,
+  so x, s and y are the whole loop state.
 
-Kernel v2 — lane-packed GEMMs. MPC QPs are small (n = N*nu, m a few
-hundred at most); a (BLK, n)@(n, n) dot pads n up to the 128-lane tile and
-wastes the MXU, and the v1 kernel issued 4 + 2R of them per iteration.
-v2 packs the work into TWO fat GEMM dispatches per iteration:
-
-1. ``g1 = [y ; s] @ [A | A'diag(rho_0)' .. A'diag(rho_{R-1})']``
-   — one (2*BLK, m)@(m, n + R*n) dot produces A'y and the R rho-weighted
-   back-projections A'diag(rho_r) s in a single MXU pass (row-stacked LHS,
-   column-packed RHS).
-2. ``cs = rhs_all @ blockdiag_r([K_r^{-1} | K_r^{-1} A'])``
-   — one (BLK, R*n)@(R*n, R*(n+m)) dot produces, for every grid rho, BOTH
-   the K-solve candidate x_r AND its constraint-space image A x_r (the
-   follow-up ``xt @ A'`` GEMM of v1 is folded into the operator since
-   (rhs K^{-1}) A' = rhs (K^{-1} A')).
-
-Per-lane rho selection is then a masked sum over R static column slices
-(VPU work). Iterative refinement (refine_steps > 0) adds two packed dots
-per step against the unfactored K. For the bench shape (n=m=40, R=2) this
-cuts MXU dispatches per iteration 6 -> 2 and padded FLOPs ~1.5x, and the
-bigger default block (1024 lanes) amortizes the MXU fill/drain latency the
-small v1 GEMMs paid on every dispatch.
+Padded columns carry zero operator rows/columns, zero bounds and zero
+diagonal entries, so they stay exactly zero; padded lanes replicate the
+last lane and are sliced off. The between-chunk driver is plain JAX:
+exact unscaled residuals, the OSQP rho rule per lane, frozen converged
+lanes and the per-lane NaN guard, as in the plain engine.
 """
 
 from __future__ import annotations
@@ -50,1196 +38,259 @@ from typing import Any, Optional, Tuple
 import jax
 import jax.numpy as jnp
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as plt
 
-from .admm import AdmmConfig, AdmmOperator, start_rho_index
 from ..types import STATUS_CONVERGED, STATUS_MAX_ITER, STATUS_NUMERIC_ERROR
+from ..utils.devices import kernel_route
+from .admm import AdmmConfig, AdmmOperator, start_rho_index
 
 Array = Any
 
-_BLOCK = 1024  # max scenario lanes per grid program (VMEM permitting)
+_IEEE = jax.lax.Precision.HIGHEST  # Triton lowers HIGHEST f32 dots as IEEE
 
 
-def _make_dot(mode: str):
-    """Kernel dot for the configured MXU precision (AdmmConfig
-    .kernel_precision). "bf16x3" is the classic hi/lo split: a = hi(a) +
-    lo(a) in bf16, a@b ~ hi@hi + lo@hi + hi@lo — 3 single-pass bf16 MXU
-    dots instead of HIGHEST's 6, recovering ~f32 product accuracy up to
-    the missing lo@lo term. Mosaic rejects Precision.HIGH (bf16x3) as a
-    dot attribute, hence the manual decomposition."""
-    if mode not in ("highest", "bf16x3", "default"):
-        raise ValueError(
-            f"unknown kernel_precision {mode!r}; valid: 'highest' (f32, "
-            "6-pass), 'bf16x3' (3-pass hi/lo split), 'default' (1-pass "
-            "bf16 — documented to stall at eps 1e-6), 'hybrid' (resolved "
-            "per chunk by the driver — never reaches the kernel)"
-        )
-    if mode == "bf16x3":
-        bf16, f32 = jnp.bfloat16, jnp.float32
-
-        def dot(a, b):
-            a_hi = a.astype(bf16)
-            a_lo = (a - a_hi.astype(f32)).astype(bf16)
-            b_hi = b.astype(bf16)
-            b_lo = (b - b_hi.astype(f32)).astype(bf16)
-            # precision MUST be pinned to DEFAULT: the package-level
-            # jax_default_matmul_precision="highest" otherwise stamps
-            # contract_precision<fp32> onto these bf16 matmuls and Mosaic
-            # rejects the op ("Bad lhs type", r5)
-            d = lambda x, y: jnp.dot(
-                x, y, preferred_element_type=f32,
-                precision=jax.lax.Precision.DEFAULT,
-            )
-            return d(a_hi, b_hi) + (d(a_lo, b_hi) + d(a_hi, b_lo))
-
-        return dot
-    prec = {
-        "highest": jax.lax.Precision.HIGHEST,
-        "default": jax.lax.Precision.DEFAULT,
-    }[mode]
-    return lambda a, b: jnp.dot(
-        a, b, preferred_element_type=jnp.float32, precision=prec
-    )
+def _pow2(v: int, floor: int = 1) -> int:
+    return max(floor, 1 << max(0, int(v) - 1).bit_length())
 
 
-def _make_opdot(mode: str, A):
-    """Left-multiplication ``rhs -> A @ rhs`` by a LOOP-CONSTANT operator at
-    the configured precision. For bf16x3 the operator's hi/lo split is
-    hoisted to closure-creation time: casting the constant operand inside
-    the fori_loop body makes Mosaic's layout inference reject the matmul
-    ("Bad lhs type", r5 — only when 4+ loop states and broadcast-built
-    operands are present), and the split is loop-invariant anyway."""
-    if mode == "bf16x3":
-        bf16, f32 = jnp.bfloat16, jnp.float32
-        a_hi = A.astype(bf16)
-        a_lo = (A - a_hi.astype(f32)).astype(bf16)
-        d = lambda x, y: jnp.dot(
-            x, y, preferred_element_type=f32,
-            precision=jax.lax.Precision.DEFAULT,
-        )
+def block_config(n_pad: int, R_pad: int) -> Tuple[int, int]:
+    """(lanes per program, num_warps) for the chunk kernel.
 
-        def dot(rhs):
-            b_hi = rhs.astype(bf16)
-            b_lo = (rhs - b_hi.astype(f32)).astype(bf16)
-            return d(a_hi, b_hi) + (d(a_lo, b_hi) + d(a_hi, b_lo))
-
-        return dot
-    base = _make_dot(mode)
-    return lambda rhs: base(A, rhs)
+    Registers bound the block: about ten live (BLK, n_pad) f32 tensors plus
+    the (BLK, R_pad*n_pad) spread operand. Measured on an H100 (PERF.md): at
+    n_pad=64, R_pad=2 a 64-lane block on 8 warps was the fastest setting
+    at 1,024 to 16,384 lanes, 10-20x ahead of the 16- and 32-lane blocks;
+    at R_pad=4 with refinement 16 warps ran the 64-lane block fastest."""
+    return 64, (8 if R_pad * n_pad <= 128 else 16)
 
 
-def _pad128(v: int) -> int:
-    return -(-v // 128) * 128
-
-
-def _padded_flops_per_lane(n: int, m: int, R: int, rs: int, packed: bool) -> int:
-    """Padded MXU MACs per scenario lane per iteration for each kernel
-    variant. The MXU tiles every GEMM operand up to the 128-lane grid, so a
-    (BLK, K)@(K, M) dot costs BLK * pad(K) * pad(M) regardless of the true
-    K, M — which is exactly why neither variant wins everywhere:
-
-    - *packed* (2 fat dispatches) pads (R+1)n / R*n / R(n+m) ONCE — a win
-      when n, m are far below the 128 tile (h20 QTP: n=m=40) and per-rho
-      GEMMs would each waste (128/40)^2 ~ 10x;
-    - *per-rho* (2+2R thin dispatches) skips the blockdiag's structural
-      zeros — a win when R*n spans multiple tiles and the packed GEMM2
-      executes ~R x redundant FLOPs on a dense-padded block-diagonal
-      (the measured 4.7x h50 collapse at n=100, R=5; VERDICT r3 weak #3).
-    """
-    pad = _pad128
-    if packed:
-        f = 2 * pad(m) * pad((R + 1) * n)  # GEMM1 (2*BLK stacked rows)
-        f += pad(R * n) * pad(R * (n + m))  # GEMM2
-        f += rs * (pad(n) * pad(R * n) + pad(n) * pad(R * (n + m)))
-    else:
-        f = pad(m) * pad(n)  # aty
-        f += R * (pad(m) * pad(n) + pad(n) * pad(n))  # back-proj + K-solve
-        f += rs * 2 * R * pad(n) * pad(n)  # refinement
-        f += pad(n) * pad(m)  # st
-    return f
-
-
-def _use_packed(n: int, m: int, R: int, rs: int = 1) -> bool:
-    """Choose the kernel variant by the padded-FLOP cost model, with the
-    packed operator's VMEM footprint as a hard cap (the (R*n, R*(n+m))
-    blockdiag slab must stay well under the ~16 MB scoped VMEM)."""
-    if R * n * R * (n + m) * 4 > 2 * 2**20:
-        return False
-    return _padded_flops_per_lane(n, m, R, rs, True) <= _padded_flops_per_lane(
-        n, m, R, rs, False
-    )
-
-
-def _shared_bytes(n: int, m: int, R: int, packed: bool, refine: int) -> int:
-    if packed:
-        s = (
-            m * (n + R * n)  # rhs1
-            + R * n * R * (n + m)  # wcat
-            + n * R * n  # kcat
-            + n * R * (n + m)  # wrow
-        )
-    else:
-        s = 2 * R * n * n + R * n * m + m * n  # K_inv, K, atrho, A
-    return (s + 2 * R * m) * 4
-
-
-def _pick_block(
-    B: int, n: int, m: int, R: int, refine_steps: int,
-    budget_mb: float = 14.5,
-) -> int:
-    """Largest block whose VMEM footprint fits the ~16 MB budget.
-
-    Bigger blocks amortize MXU fill/drain per GEMM dispatch; but the lane
-    state (double-buffered across grid programs) plus the GEMM temporaries
-    grow linearly in blk and in the rho-grid width R — at R=5 a 1024-lane
-    block overflows the 16 MB scoped VMEM, and big-n problems also carry
-    large shared operator slabs."""
-    pad = lambda v: -(-v // 128) * 128
-    packed = _use_packed(n, m, R, refine_steps)
-    shared = _shared_bytes(n, m, R, packed, refine_steps)
-    for blk in (1024, 512, 256, 128, 64, 32, 16, 8):
-        if B % blk:
-            continue
-        lane = blk * (3 * pad(n) + 7 * pad(m) + 128) * 4  # in+out lane state
-        if packed:
-            temps = (
-                2 * blk * pad(n + R * n)  # g1
-                + blk * pad(R * n)  # rhs_all
-                + blk * pad(R * (n + m))  # cs
-            ) * 4
-            if refine_steps:
-                temps += blk * (pad(R * n) + pad(R * (n + m))) * 4
-        else:
-            temps = blk * (4 * pad(n) + 2 * pad(m)) * 4
-        # 14.5 MB model budget against the ~16 MB physical VMEM: blk=1024
-        # at the headline shape models at ~14.25 MB and measures +4% over
-        # blk=512 on TPU v5e (r4); blk=2048 (~28 MB) fails to place,
-        # bracketing the real limit. The remaining ~1.5 MB covers Mosaic's
-        # own buffers; every shipped shape is compile-verified on hardware.
-        # Per-rho branch: count the shared operator slabs TWICE — measured
-        # on TPU v5e (r5): n=m=400/R=5/refine=1 at blk=64 models at 13.7 MB
-        # single-counted yet Mosaic reports 21.27 MB scoped (OOM, 16 MB
-        # limit); the ~+10 MB gap matches one extra pipeline copy of the
-        # 10.24 MB shared slabs. Double-counting reproduces the measured
-        # footprint and keeps the hardware-verified h100 per-rho shape
-        # (n=m=200/R=5: 12.2 MB modeled, places fine) inside the budget.
-        shared_eff = shared if packed else 2 * shared
-        if 2 * lane + temps + shared_eff < int(budget_mb * 2**20):
-            return blk
-    return 0  # nothing fits: the problem is too large for the fused kernel
-
-
-def fused_fits(
-    n: int, m: int, R: int, refine_steps: int, diag_a: bool = False,
-    mixed_a: bool = False,
-) -> bool:
-    """True when a USEFUL block size fits the kernel's VMEM budget for
-    this problem shape — the routing layer (parallel.fused_supported)
-    sends oversized condensed problems to the vmapped engine instead of
-    letting the kernel overflow VMEM at runtime. Blocks under 64 lanes
-    are excluded: at that point the shared operator slabs crowd out the
-    lane state, per-dispatch GEMMs shrink below the MXU tile, and the
-    vmapped engine wins regardless (measured h200+: the kernel either
-    fails to place or trails vmap). Diagonal-A / mixed operators route to
-    the transposed v3 kernels, whose footprints are far smaller."""
-    if diag_a:
-        return _pick_block_diag(1024, n, R, refine_steps) >= 64
-    if mixed_a:
-        return _pick_block_mixed(1024, n, m, R, refine_steps) >= 128
-    return _pick_block(1024, n, m, R, refine_steps) >= 64
-
-
-def _iterate_kernel(
-    # inputs (VMEM)
-    rhs1_ref,  # (m, n + R*n)   [A | A'diag(rho_0)' .. ]  column-packed
-    wcat_ref,  # (R*n, R*(n+m)) blockdiag_r([K_r^{-1} | K_r^{-1} A_s'])
-    kcat_ref,  # (n, R*n)       [K_0 | .. | K_{R-1}]       (refinement only)
-    wrow_ref,  # (n, R*(n+m))   [K_0^{-1}|K_0^{-1}A' | ..] (refinement only)
-    rhov_ref,  # (R, m)
-    rhoi_ref,  # (R, m)
-    q_ref,  # (BLK, n)
-    l_ref,  # (BLK, m)
-    u_ref,  # (BLK, m)
+def _chunk_kernel(
+    kinv_ref,  # (R_pad*n_pad, n_pad)  [K_0^{-T}; K_1^{-T}; ..]
+    kmat_ref,  # (R_pad*n_pad, n_pad)  [K_0^T; ..] (refinement only)
+    d_ref,  # (1, n_pad) diag(A_s)
+    rhov_ref,  # (R_pad, n_pad)
+    rhoi_ref,  # (R_pad, n_pad)
+    q_ref,  # (BLK, n_pad) scaled
+    l_ref,
+    u_ref,
     idx_ref,  # (BLK, 1) int32 rho index per lane
-    x_in,  # (BLK, n)
-    s_in,  # (BLK, m)
-    y_in,  # (BLK, m)
-    ax_in,  # (BLK, m)
-    # outputs (aliased)
-    x_out,
-    s_out,
-    y_out,
-    ax_out,
-    *,
-    R: int,
-    n: int,
-    m: int,
-    chunk: int,
-    sigma: float,
-    alpha: float,
-    refine_steps: int,
-    dot_mode: str,
-):
-    dot = _make_dot(dot_mode)
-    rhs1 = rhs1_ref[:]
-    wcat = wcat_ref[:]
-    q = q_ref[:]
-    l = l_ref[:]
-    u = u_ref[:]
-    idx = idx_ref[:]  # (BLK, 1)
-
-    # per-lane rho index masks, hoisted (idx is fixed within a chunk)
-    masks = [(idx == r).astype(jnp.float32) for r in range(R)]  # (BLK, 1)
-    rho_vec = jnp.zeros_like(l)
-    rho_inv = jnp.zeros_like(l)
-    for r in range(R):
-        rho_vec = rho_vec + masks[r] * rhov_ref[r]
-        rho_inv = rho_inv + masks[r] * rhoi_ref[r]
-
-    nm = n + m
-
-    def select(cs, off, width):
-        """Masked per-lane pick of the idx-selected R-block column slice."""
-        out = masks[0] * cs[:, off : off + width]
-        for r in range(1, R):
-            out = out + masks[r] * cs[:, r * nm + off : r * nm + off + width]
-        return out
-
-    def body(_, state):
-        x, s, y, ax = state
-        # GEMM 1: A'y and all R rho-weighted A'diag(rho_r) s in one pass
-        g1 = dot(jnp.concatenate([y, s], axis=0), rhs1)  # (2*BLK, n + R*n)
-        aty = g1[: x.shape[0], :n]
-        sa = g1[x.shape[0] :, n:]  # (BLK, R*n)
-        base = sigma * x - q - aty
-        rhs_all = jnp.concatenate([base] * R, axis=1) + sa  # (BLK, R*n)
-        # GEMM 2: candidate x_r AND A x_r for every grid rho at once
-        cs = dot(rhs_all, wcat)  # (BLK, R*(n+m))
-        xt = select(cs, 0, n)
-        st = select(cs, n, m)
-        if refine_steps:
-            rhs_sel = masks[0] * rhs_all[:, :n]
-            for r in range(1, R):
-                rhs_sel = rhs_sel + masks[r] * rhs_all[:, r * n : (r + 1) * n]
-            for _ in range(refine_steps):
-                kx = dot(xt, kcat_ref[:])  # (BLK, R*n) = xt @ K_r for all r
-                kx_sel = masks[0] * kx[:, :n]
-                for r in range(1, R):
-                    kx_sel = kx_sel + masks[r] * kx[:, r * n : (r + 1) * n]
-                corr = dot(rhs_sel - kx_sel, wrow_ref[:])  # (BLK, R*(n+m)) = resid @ [K_r^{-1} | K_r^{-1} A']
-                xt = xt + select(corr, 0, n)
-                st = st + select(corr, n, m)
-        x_new = alpha * xt + (1.0 - alpha) * x
-        v = alpha * st + (1.0 - alpha) * s
-        s_new = jnp.clip(v + rho_inv * y, l, u)
-        y_new = y + rho_vec * (v - s_new)
-        ax_new = alpha * st + (1.0 - alpha) * ax
-        return x_new, s_new, y_new, ax_new
-
-    x, s, y, ax = jax.lax.fori_loop(
-        0, chunk, body, (x_in[:], s_in[:], y_in[:], ax_in[:])
-    )
-    x_out[:] = x
-    s_out[:] = s
-    y_out[:] = y
-    ax_out[:] = ax
-
-
-def _iterate_kernel_diag(
-    # inputs (VMEM) — TRANSPOSED layout: lanes along the 128-lane axis
-    kicat_ref,  # (R*n, n) stacked K_r^{-1} (symmetric, applied from the left)
-    kcat_ref,  # (R*n, n) stacked K_r (refinement only)
-    dvec_ref,  # (n, 1) diag(A_s)
-    rhovT_ref,  # (n, R)
-    rhoiT_ref,  # (n, R)
-    q_ref,  # (n, BLK)
-    l_ref,  # (n, BLK)
-    u_ref,  # (n, BLK)
-    idx_ref,  # (1, BLK) int32 rho index per lane
-    x_in,  # (n, BLK)
+    x_in,
     s_in,
     y_in,
-    ax_in,
-    # outputs (aliased)
     x_out,
     s_out,
     y_out,
-    ax_out,
     *,
     R: int,
-    n: int,
+    R_pad: int,
     chunk: int,
     sigma: float,
     alpha: float,
     refine_steps: int,
-    dot_mode: str,
 ):
-    """Kernel v3 — the box-only (diagonal-A) fast path.
+    q = q_ref[...]
+    l = l_ref[...]
+    u = u_ref[...]
+    d = d_ref[...]  # (1, n_pad)
+    idx = idx_ref[...]  # (BLK, 1)
+    blk, n_pad = q.shape
+    masks = [(idx == r).astype(jnp.float32) for r in range(R)]  # (BLK, 1)
+    rho = masks[0] * rhov_ref[0:1, :]
+    rho_inv = masks[0] * rhoi_ref[0:1, :]
+    for r in range(1, R):
+        rho = rho + masks[r] * rhov_ref[r : r + 1, :]
+        rho_inv = rho_inv + masks[r] * rhoi_ref[r : r + 1, :]
+    # one-hot rho pick per lane, (BLK, R_pad, 1); padded grid slots never match
+    onehot = (
+        idx[:, :, None] == jax.lax.broadcasted_iota(jnp.int32, (1, R_pad, 1), 1)
+    ).astype(jnp.float32)
 
-    The headline h20 QP (and every input-box-only condensed MPC) has a
-    SQUARE, DIAGONAL constraint matrix: every A-side product is elementwise.
-    v2 treated that diagonal as dense and spent two fat padded GEMM
-    dispatches per iteration; the only algorithmically necessary MXU work
-    is the K-solve (n^2 MACs/lane). This kernel:
-
-    - keeps the lane state TRANSPOSED, (n, BLK): the small operator dim n
-      sits in the M position (sublane granularity 8, exact for n % 8 == 0)
-      and the lane axis fills the 128-lane N dim densely — the per-lane
-      padded MACs drop from ~2*pad(m)*pad((R+1)n) + pad(Rn)*pad(R(n+m))
-      (v2, ~65k at the headline shape) to R*n*pad128(n) (~10k);
-    - applies the per-lane rho entirely on the VPU (rho enters the rhs as
-      an elementwise factor, not baked into R operator copies);
-    - computes the R K-solve candidates in ONE (R*n, n) @ (n, BLK) dot and
-      mask-selects rows per lane (idx is fixed within a chunk).
-    """
-    q = q_ref[:]
-    l = l_ref[:]
-    u = u_ref[:]
-    idx = idx_ref[:]  # (1, BLK)
-
-    # materialize every broadcast to a full (n, BLK) tile in the preamble:
-    # Mosaic's layout inference mis-types the bf16x3 matmul operands when
-    # (n,1)/(1,BLK) broadcast chains flow into the 4-state loop carry
-    # ("Bad lhs type" at compile; r5) — full-shape operands sidestep it and
-    # the hoisted products are loop constants anyway.
-    ones = jnp.ones_like(q)
-    d = dvec_ref[:] * ones  # (n, BLK)
-    masks = [
-        (idx == r).astype(jnp.float32) * ones for r in range(R)
-    ]  # (n, BLK)
-    rho = jnp.zeros_like(q)
-    rho_inv = jnp.zeros_like(q)
-    for r in range(R):
-        rho = rho + masks[r] * rhovT_ref[:, r : r + 1]
-        rho_inv = rho_inv + masks[r] * rhoiT_ref[:, r : r + 1]
-
-    def select_rows(cand):  # (R*n, BLK) -> (n, BLK) per-lane rho pick
-        out = masks[0] * cand[:n, :]
-        for r in range(1, R):
-            out = out + masks[r] * cand[r * n : (r + 1) * n, :]
-        return out
-
-    # NOTE: the opdot closures (which hoist the bf16x3 hi/lo split of the
-    # loop-constant operators) must be created AFTER the broadcast preamble
-    # above — creating the bf16 casts before the (n,1)/(1,BLK) broadcasts
-    # flips Mosaic's layout choice for the matmul operands and the kernel
-    # fails to compile with "Bad lhs type" (r5, empirically bisected).
-    dot_ki = _make_opdot(dot_mode, kicat_ref[:])
-    dot_kc = _make_opdot(dot_mode, kcat_ref[:]) if refine_steps else None
+    def solve_with(stack_ref, v):
+        """v @ M_r^T for each lane's own r, as ONE dot: the lane's row is
+        spread into its grid slot of a (BLK, R_pad*n_pad) operand (zeros in
+        the other slots) against the stacked (R_pad*n_pad, n_pad) matrices."""
+        if R_pad > 1:
+            v = (onehot * v[:, None, :]).reshape(blk, R_pad * n_pad)
+        return jnp.dot(
+            v, stack_ref[...], precision=_IEEE,
+            preferred_element_type=jnp.float32,
+        )
 
     def body(_, state):
-        x, s, y, ax = state
-        rhs = sigma * x - q - d * y + d * (rho * s)
-        cand = dot_ki(rhs)  # (R*n, BLK): all rho candidates
-        xt = select_rows(cand)
+        x, s, y = state
+        rhs = sigma * x - q + d * (rho * s - y)
+        xt = solve_with(kinv_ref, rhs)
         for _ in range(refine_steps):
-            kx = dot_kc(xt)
-            resid = rhs - select_rows(kx)
-            corr = dot_ki(resid)
-            xt = xt + select_rows(corr)
+            xt = xt + solve_with(kinv_ref, rhs - solve_with(kmat_ref, xt))
         st = d * xt
         x_new = alpha * xt + (1.0 - alpha) * x
         v = alpha * st + (1.0 - alpha) * s
         s_new = jnp.clip(v + rho_inv * y, l, u)
         y_new = y + rho * (v - s_new)
-        ax_new = alpha * st + (1.0 - alpha) * ax
-        return x_new, s_new, y_new, ax_new
+        return x_new, s_new, y_new
 
-    x, s, y, ax = jax.lax.fori_loop(
-        0, chunk, body, (x_in[:], s_in[:], y_in[:], ax_in[:])
-    )
-    x_out[:] = x
-    s_out[:] = s
-    y_out[:] = y
-    ax_out[:] = ax
+    x, s, y = jax.lax.fori_loop(0, chunk, body, (x_in[...], s_in[...], y_in[...]))
+    x_out[...] = x
+    s_out[...] = s
+    y_out[...] = y
 
 
-def _pick_block_diag(
-    B: int, n: int, R: int, refine_steps: int, budget_mb: float = 12.0,
-) -> int:
-    """Largest lane block for the transposed diag kernel within the 14.5 MB
-    VMEM budget. Lane state is (n, blk) x 11 (7 in + 4 aliased out, double-
-    buffered); GEMM temporaries are (R*n, blk) — counted at 2 live slabs
-    per K-solve plus 2 per refinement step, DOUBLED for the multi-program
-    grid's pipelining (hardware-calibrated r5: n=200/R=5/refine=1 places
-    at blk=128 and OOMs at 256 under a 16-program grid while a single
-    program places 256 fine; the headline n=40/R=2/refine=0 blk=2048 is
-    compile-verified). Blocks under 128 lanes are invalid — the lane axis
-    is the 128-wide minor tile and Mosaic rejects smaller blocks."""
-    for blk in (4096, 2048, 1024, 512, 256, 128):
-        if B % blk:
-            continue
-        lane = (11 * n + 1) * blk * 4
-        temps = 2 * (2 + 2 * refine_steps) * R * n * blk * 4
-        shared = (2 * R * n * n + n + 2 * n * R) * 4
-        if 2 * lane + temps + shared < int(budget_mb * 2**20):
-            return blk
-    return 0
-
-
-def _iterate_chunk_diag(
-    op: AdmmOperator,
-    q_s: Array,  # (B, n) scaled — standard layout at the driver boundary
-    l_s: Array,
-    u_s: Array,
-    idx: Array,  # (B,)
-    x: Array,
-    s: Array,
-    y: Array,
-    ax: Array,
-    chunk: int,
-    config: AdmmConfig,
-    interpret: bool = False,
-    dot_mode: Optional[str] = None,
-) -> Tuple[Array, Array, Array, Array]:
-    """Diag-A chunk driver at the STANDARD (B, n) layout boundary:
-    transpose, run the transposed core, transpose back. The fully
-    transposed solve driver (_solve_batch_fused_diag) skips this wrapper
-    and calls :func:`_iterate_chunk_diag_T` directly — its state never
-    leaves the lane-last layout between chunks."""
-    out = _iterate_chunk_diag_T(
-        op, q_s.T, l_s.T, u_s.T, idx, x.T, s.T, y.T, ax.T,
-        chunk, config, interpret, dot_mode,
-    )
-    return tuple(o.T for o in out)
-
-
-def _iterate_chunk_diag_T(
-    op: AdmmOperator,
-    qT: Array,  # (n, B) scaled, LANE-LAST layout
-    lT: Array,
-    uT: Array,
-    idx: Array,  # (B,)
-    xT: Array,
-    sT: Array,
-    yT: Array,
-    axT: Array,
-    chunk: int,
-    config: AdmmConfig,
-    interpret: bool = False,
-    dot_mode: Optional[str] = None,
-) -> Tuple[Array, Array, Array, Array]:
-    """Transposed-core diag chunk: all operands already lane-last."""
-    n, B = qT.shape
-    R = int(op.rho_grid.shape[0])
-    # under the hybrid per-chunk lax.cond the input/output aliasing is
-    # broken by branch-boundary copies and the kernel's true VMEM footprint
-    # grows ~3 MB past the model (measured r5: dense h20 OOM at 17.45M)
-    # — shrink the budget further so the block picker stays inside the
-    # real limit (base diag budget 12 MB, see _pick_block_diag)
-    budget = 9.5 if dot_mode is not None else 12.0
-    # interpret mode (CPU tests) has no 128-lane block constraint; on
-    # hardware the driver pads B to a multiple of 128 before reaching here
-    blk = B if (B < 128 and interpret) else _pick_block_diag(
-        B, n, R, int(config.refine_steps), budget_mb=budget
-    )
-    if blk == 0:
-        raise ValueError(
-            f"fused diag ADMM kernel: no block size fits VMEM for n={n}, "
-            f"R={R} — use the vmapped engine"
-        )
-    assert B % blk == 0
-
-    kicat = op.K_invs.reshape(R * n, n)
-    kcat = op.Ks.reshape(R * n, n)
-    dvec = jnp.diagonal(op.A_s)[:, None]
-    rhovT = op.rho_vecs.T
-    rhoiT = op.rho_invs.T
-
-    kernel = functools.partial(
-        _iterate_kernel_diag,
-        R=R,
-        n=int(n),
-        chunk=int(chunk),
-        sigma=float(config.sigma),
-        alpha=float(config.alpha),
-        refine_steps=int(config.refine_steps),
-        dot_mode=str(dot_mode or config.kernel_precision),
-    )
-    shared = pl.BlockSpec(memory_space=pltpu.VMEM)
-    bspec = pl.BlockSpec((n, blk), lambda i: (0, i), memory_space=pltpu.VMEM)
-    bspec_i = pl.BlockSpec((1, blk), lambda i: (0, i), memory_space=pltpu.VMEM)
-
-    out = pl.pallas_call(
-        kernel,
-        grid=(B // blk,),
-        in_specs=[shared] * 5
-        + [bspec, bspec, bspec, bspec_i, bspec, bspec, bspec, bspec],
-        out_specs=[bspec] * 4,
-        out_shape=[jax.ShapeDtypeStruct((n, B), jnp.float32)] * 4,
-        input_output_aliases={9: 0, 10: 1, 11: 2, 12: 3},
-        interpret=interpret,
-    )(
-        kicat, kcat, dvec, rhovT, rhoiT,
-        qT, lT, uT, idx[None, :].astype(jnp.int32),
-        xT, sT, yT, axT,
-    )
-    return tuple(out)
-
-
-def _iterate_kernel_mixed(
-    # inputs (VMEM) — TRANSPOSED layout; A = [diag(d); A2] with A2 dense
-    kicat_ref,  # (R*n, n) stacked K_r^{-1}
-    kcat_ref,  # (R*n, n) stacked K_r (refinement only)
-    a2_ref,  # (ms, n) dense state-row block
-    a2t_ref,  # (n, ms) its transpose (precomputed; in-kernel transposes
-    # cost relayouts)
-    dvec_ref,  # (n, 1) diag of the box block
-    rhovT_ref,  # (m, R)
-    rhoiT_ref,  # (m, R)
-    q_ref,  # (n, BLK)
-    l_ref,  # (m, BLK)
-    u_ref,  # (m, BLK)
-    idx_ref,  # (1, BLK)
-    x_in,  # (n, BLK)
-    s_in,  # (m, BLK)
-    y_in,
-    ax_in,
-    x_out,
-    s_out,
-    y_out,
-    ax_out,
-    *,
-    R: int,
-    n: int,
-    m: int,
-    chunk: int,
-    sigma: float,
-    alpha: float,
-    refine_steps: int,
-    dot_mode: str,
-):
-    """Kernel v3-mixed: condensed MPC with state rows.
-
-    Every condensed MPC's first n constraint rows are the (diagonal) input
-    box; only the state-box / terminal rows are dense. The v2 kernel
-    treated the whole A as dense; here the box block runs on the VPU and
-    the MXU sees only the (ms, n) dense tail — per-lane padded MACs at the
-    state-constrained h20 shape drop ~4.5x vs the v2 packed variant
-    (measured r5 routing audit: v2 fused lost to vmap here). Layout and
-    rho handling follow _iterate_kernel_diag."""
-    q = q_ref[:]
-    l = l_ref[:]
-    u = u_ref[:]
-    idx = idx_ref[:]
-    ms = m - n
-
-    ones_m = jnp.ones_like(l)
-    d = dvec_ref[:] * jnp.ones_like(q)  # (n, BLK)
-    masks_m = [(idx == r).astype(jnp.float32) * ones_m for r in range(R)]
-    rho = jnp.zeros_like(l)
-    rho_inv = jnp.zeros_like(l)
-    for r in range(R):
-        rho = rho + masks_m[r] * rhovT_ref[:, r : r + 1]
-        rho_inv = rho_inv + masks_m[r] * rhoiT_ref[:, r : r + 1]
-    masks_n = [mk[:n, :] for mk in masks_m]
-
-    def select_rows(cand):  # (R*n, BLK) -> (n, BLK)
-        out = masks_n[0] * cand[:n, :]
-        for r in range(1, R):
-            out = out + masks_n[r] * cand[r * n : (r + 1) * n, :]
-        return out
-
-    # opdots created AFTER the broadcast preamble (Mosaic layout-inference
-    # order sensitivity — see _iterate_kernel_diag)
-    dot_ki = _make_opdot(dot_mode, kicat_ref[:])
-    dot_kc = _make_opdot(dot_mode, kcat_ref[:]) if refine_steps else None
-    dot_a2t = _make_opdot(dot_mode, a2t_ref[:])
-    dot_a2 = _make_opdot(dot_mode, a2_ref[:])
-
-    def body(_, state):
-        x, s, y, ax = state
-        yb, yt = y[:n, :], y[n:, :]
-        rs_all = rho * s
-        aty = d * yb + dot_a2t(yt)
-        w = d * rs_all[:n, :] + dot_a2t(rs_all[n:, :])
-        rhs = sigma * x - q - aty + w
-        cand = dot_ki(rhs)
-        xt = select_rows(cand)
-        for _ in range(refine_steps):
-            kx = dot_kc(xt)
-            resid = rhs - select_rows(kx)
-            corr = dot_ki(resid)
-            xt = xt + select_rows(corr)
-        st = jnp.concatenate([d * xt, dot_a2(xt)], axis=0)  # (m, BLK)
-        x_new = alpha * xt + (1.0 - alpha) * x
-        v = alpha * st + (1.0 - alpha) * s
-        s_new = jnp.clip(v + rho_inv * y, l, u)
-        y_new = y + rho * (v - s_new)
-        ax_new = alpha * st + (1.0 - alpha) * ax
-        return x_new, s_new, y_new, ax_new
-
-    x, s, y, ax = jax.lax.fori_loop(
-        0, chunk, body, (x_in[:], s_in[:], y_in[:], ax_in[:])
-    )
-    x_out[:] = x
-    s_out[:] = s
-    y_out[:] = y
-    ax_out[:] = ax
-
-
-def _pick_block_mixed(
-    B: int, n: int, m: int, R: int, refine_steps: int, budget_mb: float = 12.0,
-) -> int:
-    """VMEM block picker for the mixed kernel (same calibration rules as
-    _pick_block_diag: 12 MB budget, pipelined temps doubled, lane blocks
-    are multiples of 128)."""
-    ms = m - n
-    for blk in (2048, 1024, 512, 256, 128):
-        if B % blk:
-            continue
-        lane = (3 * n + 7 * m + 1) * blk * 4
-        temps = 2 * (
-            (2 + 2 * refine_steps) * R * n + 2 * n + 2 * m
-        ) * blk * 4
-        shared = (2 * R * n * n + 2 * ms * n + n + 2 * m * R) * 4
-        if 2 * lane + temps + shared < int(budget_mb * 2**20):
-            return blk
-    return 0
-
-
-def _iterate_chunk_mixed_T(
-    op: AdmmOperator,
-    qT: Array,  # (n, B)
-    lT: Array,  # (m, B)
-    uT: Array,
-    idx: Array,  # (B,)
-    xT: Array,  # (n, B)
-    sT: Array,  # (m, B)
-    yT: Array,
-    axT: Array,
-    chunk: int,
-    config: AdmmConfig,
-    interpret: bool = False,
-    dot_mode: Optional[str] = None,
-) -> Tuple[Array, Array, Array, Array]:
-    """Transposed-core mixed chunk (box-diagonal + dense state rows)."""
-    n, B = qT.shape
-    m = lT.shape[0]
-    R = int(op.rho_grid.shape[0])
-    budget = 9.5 if dot_mode is not None else 12.0
-    blk = B if (B < 128 and interpret) else _pick_block_mixed(
-        B, n, m, R, int(config.refine_steps), budget_mb=budget
-    )
-    if blk == 0:
-        raise ValueError(
-            f"fused mixed ADMM kernel: no block size fits VMEM for n={n}, "
-            f"m={m}, R={R} — use the vmapped engine"
-        )
-    assert B % blk == 0
-
-    kicat = op.K_invs.reshape(R * n, n)
-    kcat = op.Ks.reshape(R * n, n)
-    a2 = op.A_s[n:, :]
-    a2t = a2.T
-    dvec = jnp.diagonal(op.A_s[:n, :n])[:, None]
-    rhovT = op.rho_vecs.T
-    rhoiT = op.rho_invs.T
-
-    kernel = functools.partial(
-        _iterate_kernel_mixed,
-        R=R,
-        n=int(n),
-        m=int(m),
-        chunk=int(chunk),
-        sigma=float(config.sigma),
-        alpha=float(config.alpha),
-        refine_steps=int(config.refine_steps),
-        dot_mode=str(dot_mode or config.kernel_precision),
-    )
-    shared = pl.BlockSpec(memory_space=pltpu.VMEM)
-    bspec_n = pl.BlockSpec((n, blk), lambda i: (0, i), memory_space=pltpu.VMEM)
-    bspec_m = pl.BlockSpec((m, blk), lambda i: (0, i), memory_space=pltpu.VMEM)
-    bspec_i = pl.BlockSpec((1, blk), lambda i: (0, i), memory_space=pltpu.VMEM)
-
-    out = pl.pallas_call(
-        kernel,
-        grid=(B // blk,),
-        in_specs=[shared] * 7
-        + [bspec_n, bspec_m, bspec_m, bspec_i, bspec_n, bspec_m, bspec_m,
-           bspec_m],
-        out_specs=[bspec_n, bspec_m, bspec_m, bspec_m],
-        out_shape=[
-            jax.ShapeDtypeStruct((n, B), jnp.float32),
-            jax.ShapeDtypeStruct((m, B), jnp.float32),
-            jax.ShapeDtypeStruct((m, B), jnp.float32),
-            jax.ShapeDtypeStruct((m, B), jnp.float32),
-        ],
-        input_output_aliases={11: 0, 12: 1, 13: 2, 14: 3},
-        interpret=interpret,
-    )(
-        kicat, kcat, a2, a2t, dvec, rhovT, rhoiT,
-        qT, lT, uT, idx[None, :].astype(jnp.int32),
-        xT, sT, yT, axT,
-    )
-    return tuple(out)
-
-
-def _iterate_kernel_perr(
-    # inputs (VMEM) — unpacked per-rho operands for LARGE problems where the
-    # packed blockdiag (R*n, R*(n+m)) operator would not fit VMEM
-    kinv_ref,  # (R, n, n)
-    k_ref,  # (R, n, n) unfactored K (refinement only)
-    atrho_ref,  # (R, n, m) = A_s' diag(rho_r)
-    a_ref,  # (m, n)
-    rhov_ref,  # (R, m)
-    rhoi_ref,  # (R, m)
-    q_ref,
-    l_ref,
-    u_ref,
-    idx_ref,
-    x_in,
-    s_in,
-    y_in,
-    ax_in,
-    x_out,
-    s_out,
-    y_out,
-    ax_out,
-    *,
-    R: int,
-    chunk: int,
-    sigma: float,
-    alpha: float,
-    refine_steps: int,
-    dot_mode: str,
-):
-    dot = _make_dot(dot_mode)
-    A = a_ref[:]
-    q = q_ref[:]
-    l = l_ref[:]
-    u = u_ref[:]
-    idx = idx_ref[:]
-
-    masks = [(idx == r).astype(jnp.float32) for r in range(R)]
-    rho_vec = jnp.zeros_like(l)
-    rho_inv = jnp.zeros_like(l)
-    for r in range(R):
-        rho_vec = rho_vec + masks[r] * rhov_ref[r]
-        rho_inv = rho_inv + masks[r] * rhoi_ref[r]
-
-    def body(_, state):
-        x, s, y, ax = state
-        aty = dot(y, A)
-        base = sigma * x - q - aty
-        xt = jnp.zeros_like(x)
-        rhs_sel = jnp.zeros_like(x)
-        for r in range(R):
-            w = dot(s, atrho_ref[r].T)
-            rhs = base + w
-            cand = dot(rhs, kinv_ref[r])
-            xt = xt + masks[r] * cand
-            if refine_steps:
-                rhs_sel = rhs_sel + masks[r] * rhs
-        for _ in range(refine_steps):
-            kx = jnp.zeros_like(xt)
-            for r in range(R):
-                kx = kx + masks[r] * dot(xt, k_ref[r])
-            resid = rhs_sel - kx
-            for r in range(R):
-                xt = xt + masks[r] * dot(resid, kinv_ref[r])
-        st = dot(xt, A.T)
-        x_new = alpha * xt + (1.0 - alpha) * x
-        v = alpha * st + (1.0 - alpha) * s
-        s_new = jnp.clip(v + rho_inv * y, l, u)
-        y_new = y + rho_vec * (v - s_new)
-        ax_new = alpha * st + (1.0 - alpha) * ax
-        return x_new, s_new, y_new, ax_new
-
-    x, s, y, ax = jax.lax.fori_loop(
-        0, chunk, body, (x_in[:], s_in[:], y_in[:], ax_in[:])
-    )
-    x_out[:] = x
-    s_out[:] = s
-    y_out[:] = y
-    ax_out[:] = ax
-
-
-def packed_operators(op: AdmmOperator):
-    """Column/block-packed operator matrices for the v2 kernel (tiny; built
-    from the prefactorized AdmmOperator, hoisted out of the solve loop by
-    XLA since they are constants of the jitted program)."""
-    A = op.A_s  # (m, n)
-    R, n = op.K_invs.shape[0], op.K_invs.shape[1]
-    m = A.shape[0]
-    H = jax.lax.Precision.HIGHEST
-    # A'diag(rho_r) as column blocks: (m, R*n)
-    sacat = (op.rho_vecs[:, :, None] * A[None]).transpose(1, 0, 2).reshape(
-        m, R * n
-    )
-    rhs1 = jnp.concatenate([A, sacat], axis=1)  # (m, n + R*n)
-    kia = jnp.matmul(op.K_invs, A.T[None], precision=H)  # (R, n, m)
-    blocks = jnp.concatenate([op.K_invs, kia], axis=2)  # (R, n, n+m)
-    wcat = jnp.zeros((R * n, R * (n + m)), jnp.float32)
-    for r in range(R):
-        wcat = wcat.at[r * n : (r + 1) * n, r * (n + m) : (r + 1) * (n + m)].set(
-            blocks[r]
-        )
-    kcat = op.Ks.transpose(1, 0, 2).reshape(n, R * n)
-    wrow = blocks.transpose(1, 0, 2).reshape(n, R * (n + m))
-    return rhs1, wcat, kcat, wrow
+def _stacked(mats: Array, n_pad: int, R_pad: int) -> Array:
+    """(R, n, n) -> (R_pad*n_pad, n_pad) = [M_0^T; M_1^T; ..] zero-padded."""
+    R, n, _ = mats.shape
+    out = jnp.zeros((R_pad, n_pad, n_pad), jnp.float32)
+    out = out.at[:R, :n, :n].set(jnp.swapaxes(mats, 1, 2))
+    return out.reshape(R_pad * n_pad, n_pad)
 
 
 def _iterate_chunk(
-    op: AdmmOperator,
-    q_s: Array,  # (B, n) scaled
+    ops: Tuple[Array, ...],
+    q_s: Array,  # (B_pad, n_pad)
     l_s: Array,
     u_s: Array,
-    idx: Array,  # (B,) int32
+    idx: Array,  # (B_pad,)
     x: Array,
     s: Array,
     y: Array,
-    ax: Array,
+    *,
+    R: int,
     chunk: int,
     config: AdmmConfig,
-    interpret: bool = False,
-    dot_mode: Optional[str] = None,
-) -> Tuple[Array, Array, Array, Array]:
-    """Run `chunk` fused iterations for the whole batch (grid over blocks)."""
-    if getattr(op, "diag_a", False):
-        return _iterate_chunk_diag(
-            op, q_s, l_s, u_s, idx, x, s, y, ax, chunk, config, interpret,
-            dot_mode=dot_mode,
-        )
-    if getattr(op, "mixed_a", False):
-        out = _iterate_chunk_mixed_T(
-            op, q_s.T, l_s.T, u_s.T, idx, x.T, s.T, y.T, ax.T,
-            chunk, config, interpret, dot_mode,
-        )
-        return tuple(o.T for o in out)
-    B, n = q_s.shape
-    m = l_s.shape[1]
-    R = op.rho_grid.shape[0]
-    budget = 11.0 if dot_mode is not None else 14.5  # see _iterate_chunk_diag
-    blk = B if B < 8 else _pick_block(
-        B, n, m, int(R), int(config.refine_steps), budget_mb=budget
-    )
-    if blk == 0:
-        # Distinguish "no power-of-two divisor of B fits" from "the problem
-        # genuinely overflows VMEM": the driver (solve_batch_fused) pads B to
-        # a multiple of 8 before calling here, so a zero from _pick_block with
-        # a multiple-of-8 batch means even blk=8 does not fit — a true VMEM
-        # overflow. Any other B reaching this point is a driver bug.
-        raise ValueError(
-            f"fused ADMM kernel: no block size fits VMEM for n={n}, m={m}, "
-            f"R={int(R)} (shared operator slabs too large) — use the "
-            "vmapped engine (parallel.solve_batch / solve_batch_auto)"
-        )
-    assert B % blk == 0, f"batch {B} not divisible by block {blk}"
-    packed = _use_packed(n, m, int(R), int(config.refine_steps))
-
-    common = dict(
-        R=int(R),
+    block: int,
+    num_warps: int,
+    interpret: bool,
+) -> Tuple[Array, Array, Array]:
+    kinv, kmat, d, rhov, rhoi = ops
+    B, n_pad = q_s.shape
+    R_pad = rhov.shape[0]
+    kernel = functools.partial(
+        _chunk_kernel,
+        R=R,
+        R_pad=R_pad,
         chunk=int(chunk),
         sigma=float(config.sigma),
         alpha=float(config.alpha),
         refine_steps=int(config.refine_steps),
-        dot_mode=str(dot_mode or config.kernel_precision),
     )
-    if packed:
-        rhs1, wcat, kcat, wrow = packed_operators(op)
-        kernel = functools.partial(
-            _iterate_kernel, n=int(n), m=int(m), **common
-        )
-        shared_ops = (rhs1, wcat, kcat, wrow)
-    else:
-        atrho = op.A_s.T[None] * op.rho_vecs[:, None, :]  # (R, n, m)
-        kernel = functools.partial(_iterate_kernel_perr, **common)
-        shared_ops = (op.K_invs, op.Ks, atrho, op.A_s)
-
-    shared = pl.BlockSpec(memory_space=pltpu.VMEM)  # full array, replicated
-    bspec_n = pl.BlockSpec((blk, n), lambda i: (i, 0), memory_space=pltpu.VMEM)
-    bspec_m = pl.BlockSpec((blk, m), lambda i: (i, 0), memory_space=pltpu.VMEM)
-    bspec_1 = pl.BlockSpec((blk, 1), lambda i: (i, 0), memory_space=pltpu.VMEM)
-
-    out = pl.pallas_call(
-        kernel,
-        grid=(B // blk,),
-        in_specs=[shared] * 6
-        + [
-            bspec_n,  # q
-            bspec_m,  # l
-            bspec_m,  # u
-            bspec_1,  # idx
-            bspec_n,  # x
-            bspec_m,  # s
-            bspec_m,  # y
-            bspec_m,  # ax
-        ],
-        out_specs=[bspec_n, bspec_m, bspec_m, bspec_m],
-        out_shape=[
-            jax.ShapeDtypeStruct((B, n), jnp.float32),
-            jax.ShapeDtypeStruct((B, m), jnp.float32),
-            jax.ShapeDtypeStruct((B, m), jnp.float32),
-            jax.ShapeDtypeStruct((B, m), jnp.float32),
-        ],
-        input_output_aliases={10: 0, 11: 1, 12: 2, 13: 3},
-        interpret=interpret,
-    )(
-        *shared_ops, op.rho_vecs, op.rho_invs,
-        q_s, l_s, u_s, idx[:, None].astype(jnp.int32), x, s, y, ax,
-    )
-    return tuple(out)
-
-
-def _solve_batch_fused_diag(
-    op: AdmmOperator,
-    q: Array,  # (B, n) unscaled — standard layout at the API boundary
-    l: Array,
-    u: Array,
-    z0: Optional[Array],
-    y0: Optional[Array],
-    config: AdmmConfig,
-    interpret: bool,
-):
-    """Fully TRANSPOSED solve driver for diagonal-A and MIXED operators.
-
-    The v3 kernel keeps lane state in the (n, B) lane-last layout; the r5
-    first cut transposed at every chunk boundary (24 relayouts of the full
-    state per solve) and ran the between-chunk diagnostics in the (B, n)
-    layout whose matmuls pad BOTH operand dims to 128. This driver
-    transposes ONCE at entry/exit and stays lane-last throughout:
-
-    - diagnostics matmul Px becomes P_s @ x — M = n exact (sublane 8),
-      K = n -> 128, N = B dense: ~3x fewer padded MACs than x @ P_s';
-    - with A diagonal, A'y / Ax are elementwise rows (no matmul at all);
-    - per-lane reductions run over axis 0 (sublanes) into (B,) vectors.
-    Semantics identical to the generic driver below (exact unscaled
-    residuals, OSQP rho rule, per-lane NaN guard, honest statuses)."""
-    B = q.shape[0]
-    dt = jnp.float32
-    R = op.rho_grid.shape[0]
-    ck = max(1, int(config.check_interval))
-    H = jax.lax.Precision.HIGHEST
-
-    mixed = bool(getattr(op, "mixed_a", False))
-    n = op.A_s.shape[1]
-    D_c = op.D[:, None]  # (n, 1)
-    E_c = op.E[:, None]  # (m, 1)
-    dvec = jnp.diagonal(op.A_s[:n, :n])[:, None]
-    a2 = op.A_s[n:, :] if mixed else None  # (ms, n) dense tail
-    qT = (op.c * op.D)[:, None] * q.T  # (n, B)
-    lT = E_c * l.T  # (m, B)
-    uT = E_c * u.T
-    H = jax.lax.Precision.HIGHEST
-
-    def a_apply(x):  # A_s @ x in the transposed layout
-        if mixed:
-            return jnp.concatenate(
-                [dvec * x, jnp.matmul(a2, x, precision=H)], axis=0
-            )
-        return dvec * x
-
-    def at_apply(y):  # A_s' y
-        if mixed:
-            return dvec * y[:n, :] + jnp.matmul(a2.T, y[n:, :], precision=H)
-        return dvec * y
-
-    x = jnp.zeros_like(qT) if z0 is None else z0.T / D_c
-    y = jnp.zeros_like(lT) if y0 is None else op.c * y0.T / E_c
-    ax = a_apply(x)
-    idx0 = jnp.full((B,), start_rho_index(config) if R > 1 else 0, jnp.int32)
-    rho_inv0 = jnp.take(op.rho_invs, idx0, axis=0).T  # (m, B)
-    s = jnp.clip(ax + rho_inv0 * y, lT, uT)
-
-    D_inv = (1.0 / op.D)[:, None]
-    E_inv = (1.0 / op.E)[:, None]
-    c_inv = 1.0 / op.c
-    log_grid = jnp.log(op.rho_grid)
-    dual_norm_q = jnp.max(jnp.abs(D_inv * qT), axis=0)  # loop constant
-
-    def diagnostics(x, s, y, ax):
-        r_prim = jnp.max(jnp.abs(E_inv * (ax - s)), axis=0)
-        Px = jnp.matmul(op.P_s, x, precision=H)  # P_s symmetric
-        Aty = at_apply(y)
-        r_dual = c_inv * jnp.max(jnp.abs(D_inv * (Px + qT + Aty)), axis=0)
-        prim_norm = jnp.maximum(
-            jnp.max(jnp.abs(E_inv * ax), axis=0),
-            jnp.max(jnp.abs(E_inv * s), axis=0),
-        )
-        dual_norm = c_inv * jnp.maximum(
-            jnp.maximum(
-                jnp.max(jnp.abs(D_inv * Px), axis=0),
-                jnp.max(jnp.abs(D_inv * Aty), axis=0),
-            ),
-            dual_norm_q,
-        )
-        conv = (r_prim <= config.eps_abs + config.eps_rel * prim_norm) & (
-            r_dual <= config.eps_abs + config.eps_rel * dual_norm
-        )
-        ratio = (r_prim / jnp.maximum(prim_norm, 1e-12)) / jnp.maximum(
-            r_dual / jnp.maximum(dual_norm, 1e-12), 1e-12
-        )
-        finite = jnp.isfinite(
-            jnp.sum(x, axis=0) + jnp.sum(y, axis=0) + jnp.sum(s, axis=0)
-        )
-        return r_prim, r_dual, conv, ratio, finite
-
-    def adapt(idx, ratio, done):
-        if R == 1 or not config.adapt_interval:
-            return idx
-        log_target = jnp.take(log_grid, idx) + 0.5 * jnp.log(
-            jnp.clip(ratio, 1e-8, 1e8)
-        )
-        idx_new = jnp.argmin(
-            jnp.abs(log_grid[None, :] - log_target[:, None]), axis=1
-        ).astype(jnp.int32)
-        return jnp.where(done, idx, idx_new)
-
-    def cond(state):
-        it, done = state[5], state[8]
-        return (~jnp.all(done)) & (it < config.max_iter)
-
-    hybrid = str(config.kernel_precision) == "hybrid"
-
-    def body(state):
-        x, s, y, ax, idx, it, rp, rd, done, itl, bad = state
-        chunk_fn = _iterate_chunk_mixed_T if mixed else _iterate_chunk_diag_T
-        if hybrid:
-            r_active = jnp.max(jnp.where(done, 0.0, jnp.maximum(rp, rd)))
-            chunk_args = (idx, x, s, y, ax)
-            x2, s2, y2, ax2 = jax.lax.cond(
-                r_active <= config.hybrid_switch_residual,
-                lambda a: chunk_fn(
-                    op, qT, lT, uT, *a, ck, config, interpret,
-                    dot_mode="highest",
-                ),
-                lambda a: chunk_fn(
-                    op, qT, lT, uT, *a, ck, config, interpret,
-                    dot_mode="bf16x3",
-                ),
-                chunk_args,
-            )
-        else:
-            x2, s2, y2, ax2 = chunk_fn(
-                op, qT, lT, uT, idx, x, s, y, ax, ck, config, interpret
-            )
-        keep = done[None, :]
-        x2 = jnp.where(keep, x, x2)
-        s2 = jnp.where(keep, s, s2)
-        y2 = jnp.where(keep, y, y2)
-        ax2 = jnp.where(keep, ax, ax2)
-        rp2, rd2, conv, ratio, finite = diagnostics(x2, s2, y2, ax2)
-        bad2 = bad | (~finite & ~done)
-        done2 = done | conv | ~finite
-        itl2 = jnp.where(done, itl, it + ck)
-        idx2 = adapt(idx, ratio, done2)
-        return (x2, s2, y2, ax2, idx2, it + ck, rp2, rd2, done2, itl2, bad2)
-
-    zeros = jnp.zeros((B,), dt)
-    state = (
-        x, s, y, ax, idx0,
-        jnp.asarray(0, jnp.int32),
-        zeros + jnp.inf,
-        zeros + jnp.inf,
-        zeros > 1.0,
-        jnp.zeros((B,), jnp.int32),
-        zeros > 1.0,
-    )
-    x, s, y, ax, idx, it, rp, rd, done, iters, bad = jax.lax.while_loop(
-        cond, body, state
-    )
-    status = jnp.where(
-        bad,
-        STATUS_NUMERIC_ERROR,
-        jnp.where(done, STATUS_CONVERGED, STATUS_MAX_ITER),
-    ).astype(jnp.int32)
-    return (
-        (D_c * x).T,
-        (E_c * y * c_inv).T,
-        (E_inv * s).T,
-        status,
-        iters,
-        rp,
-        rd,
+    lane = pl.BlockSpec((block, n_pad), lambda i: (i, 0))
+    full = lambda a: pl.BlockSpec(a.shape, lambda i: (0, 0))
+    state = jax.ShapeDtypeStruct((B, n_pad), jnp.float32)
+    return tuple(
+        pl.pallas_call(
+            kernel,
+            grid=(B // block,),
+            in_specs=[full(kinv), full(kmat), full(d), full(rhov), full(rhoi)]
+            + [lane] * 3
+            + [pl.BlockSpec((block, 1), lambda i: (i, 0))]
+            + [lane] * 3,
+            out_specs=[lane] * 3,
+            out_shape=[state] * 3,
+            input_output_aliases={9: 0, 10: 1, 11: 2},
+            interpret=interpret,
+            backend="triton",
+            # one pipeline stage: the setting every H100 timing used
+            compiler_params=plt.CompilerParams(num_warps=num_warps, num_stages=1),
+            name="admm_box_chunk",
+        )(kinv, kmat, d, rhov, rhoi, q_s, l_s, u_s, idx[:, None], x, s, y)
     )
 
 
 def solve_batch_fused(
     op: AdmmOperator,
     q: Array,  # (B, n) unscaled
-    l: Array,  # (B, m)
-    u: Array,  # (B, m)
+    l: Array,  # (B, n)
+    u: Array,  # (B, n)
     z0: Optional[Array] = None,  # (B, n)
-    y0: Optional[Array] = None,  # (B, m)
+    y0: Optional[Array] = None,  # (B, n)
     config: AdmmConfig = AdmmConfig(),
-    interpret: Optional[bool] = None,
+    interpret: bool = False,
+    block: Optional[int] = None,
+    num_warps: Optional[int] = None,
 ):
-    """Batched QP solve on the fused kernel; returns the same fields as
-    ops.admm.solve (z, y, s, status, iterations, primal/dual residuals),
-    each with a leading batch axis.
+    """Batched box-only QP solve on the fused chunk kernel; returns the
+    same fields as ops.admm.solve (z, y, s, status, iterations, primal /
+    dual residuals), each with a leading batch axis.
 
-    Between kernel chunks the driver computes exact unscaled residuals and
-    applies the OSQP rho rule per lane — identical semantics to the jax
-    engine, at a fraction of the HBM traffic.
-    """
-    if op.n_ball:
-        raise ValueError("fused kernel does not support ball rows; use ops.admm")
-    if interpret is None:
-        # Mosaic kernels need a real TPU; interpret elsewhere (tests/CPU)
-        interpret = jax.default_backend() != "tpu"
-    B_orig, _ = q.shape
-    # Alignment: the dense kernel blocks on the sublane axis (multiple of
-    # 8); the transposed diag kernel blocks on the LANE axis, whose minor
-    # tile is 128 — Mosaic rejects smaller lane blocks on hardware (r5),
-    # so any batch is padded up to the alignment (replicating the last
-    # lane — it converges like any real lane) and sliced back.
-    transposed = getattr(op, "diag_a", False) or getattr(op, "mixed_a", False)
-    align = 128 if (transposed and not interpret) else 8
-    if (B_orig >= 8 or align == 128) and B_orig % align:
-        pad_to = -(-B_orig // align) * align
-        rep = lambda a: (
-            None
-            if a is None
-            else jnp.concatenate(
-                [a, jnp.broadcast_to(a[-1:], (pad_to - B_orig,) + a.shape[1:])]
-            )
+    Takes only diagonal-A operators without ball rows (``op.diag_a``); any
+    other operator raises ``ValueError`` — solve it with the vmapped engine
+    (``parallel.solve_batch``). Off the GPU the kernel runs only when the
+    caller passes ``interpret=True``. ``block`` / ``num_warps`` override
+    :func:`block_config` (the tuning sweep of ``chip_smoke.py
+    --time-kernel``)."""
+    if op.n_ball or not op.diag_a:
+        raise ValueError(
+            "the fused ADMM kernel takes only box-only (diagonal-A) QPs "
+            "without ball rows; use the vmapped engine (parallel.solve_batch)"
         )
-        out = solve_batch_fused(
-            op, rep(q), rep(l), rep(u), rep(z0), rep(y0), config, interpret
-        )
-        return tuple(o[:B_orig] for o in out)
-    if getattr(op, "diag_a", False) or getattr(op, "mixed_a", False):
-        return _solve_batch_fused_diag(
-            op, q, l, u, z0, y0, config, interpret
+    if not interpret and kernel_route() != "triton":
+        raise ValueError(
+            f"the fused ADMM kernel compiles only for the GPU (default "
+            f"backend: {jax.default_backend()}); use parallel.solve_batch, or "
+            "pass interpret=True"
         )
     B, n = q.shape
-    m = l.shape[1]
     dt = jnp.float32
-    R = op.rho_grid.shape[0]
+    R = int(op.rho_grid.shape[0])
+    n_pad, R_pad = _pow2(n, 16), _pow2(R)
+    blk, warps = block_config(n_pad, R_pad)
+    blk = block or blk
+    warps = num_warps or warps
+    B_pad = -(-B // blk) * blk
     ck = max(1, int(config.check_interval))
 
-    q_s = (op.c * op.D)[None] * q
-    l_s = op.E[None] * l
-    u_s = op.E[None] * u
+    def lanes(a, fill=0.0):  # (B, n) -> (B_pad, n_pad): replicate last lane
+        a = jnp.concatenate([a, jnp.broadcast_to(a[-1:], (B_pad - B, n))])
+        return jnp.pad(a, ((0, 0), (0, n_pad - n)), constant_values=fill)
 
-    x = jnp.zeros((B, n), dt) if z0 is None else z0 / op.D[None]
-    y = jnp.zeros((B, m), dt) if y0 is None else op.c * y0 / op.E[None]
-    ax = jnp.matmul(x, op.A_s.T, precision=jax.lax.Precision.HIGHEST)
-    idx0 = jnp.full((B,), start_rho_index(config) if R > 1 else 0, jnp.int32)
-    rho_inv0 = jnp.take(op.rho_invs, idx0, axis=0)
-    s = jnp.clip(ax + rho_inv0 * y, l_s, u_s)
+    def cols(v, fill):  # (n,) -> (n_pad,)
+        return jnp.pad(v, (0, n_pad - n), constant_values=fill)
 
-    D_inv = (1.0 / op.D)[None]
-    E_inv = (1.0 / op.E)[None]
-    c_inv = 1.0 / op.c
+    D, E = cols(op.D, 1.0), cols(op.E, 1.0)
+    dvec = cols(jnp.diagonal(op.A_s), 0.0)
+    P_s = jnp.pad(op.P_s, ((0, n_pad - n), (0, n_pad - n)))
+    rho_vecs = jnp.pad(op.rho_vecs, ((0, R_pad - R), (0, n_pad - n)),
+                       constant_values=1.0)
+    rho_invs = 1.0 / rho_vecs
+    ops = (
+        _stacked(op.K_invs, n_pad, R_pad),
+        _stacked(op.Ks, n_pad, R_pad),
+        dvec[None],
+        rho_vecs,
+        rho_invs,
+    )
+    chunk_fn = functools.partial(
+        _iterate_chunk, ops, R=R, chunk=ck, config=config, block=blk,
+        num_warps=warps, interpret=interpret,
+    )
+
+    q_s = op.c * D[None] * lanes(q)
+    l_s = E[None] * lanes(l)
+    u_s = E[None] * lanes(u)
+    x = jnp.zeros_like(q_s) if z0 is None else lanes(z0) / D[None]
+    y = jnp.zeros_like(q_s) if y0 is None else op.c * lanes(y0) / E[None]
+    idx0 = jnp.full((B_pad,), start_rho_index(config) if R > 1 else 0, jnp.int32)
+    s = jnp.clip(dvec * x + rho_invs[idx0] * y, l_s, u_s)
+
+    D_inv, E_inv, c_inv = 1.0 / D, 1.0 / E, 1.0 / op.c
     log_grid = jnp.log(op.rho_grid)
-    H = jax.lax.Precision.HIGHEST
+    dual_norm_q = jnp.max(jnp.abs(D_inv * q_s), axis=1)  # loop constant
 
-    def diagnostics(x, s, y, ax):
+    def diagnostics(x, s, y):
+        ax = dvec * x
         r_prim = jnp.max(jnp.abs(E_inv * (ax - s)), axis=1)
-        Px = jnp.matmul(x, op.P_s.T, precision=H)
-        Aty = jnp.matmul(y, op.A_s, precision=H)
+        Px = jnp.matmul(x, P_s, precision=_IEEE)  # P_s symmetric
+        Aty = dvec * y
         r_dual = c_inv * jnp.max(jnp.abs(D_inv * (Px + q_s + Aty)), axis=1)
         prim_norm = jnp.maximum(
-            jnp.max(jnp.abs(E_inv * ax), axis=1), jnp.max(jnp.abs(E_inv * s), axis=1)
+            jnp.max(jnp.abs(E_inv * ax), axis=1),
+            jnp.max(jnp.abs(E_inv * s), axis=1),
         )
         dual_norm = c_inv * jnp.maximum(
             jnp.maximum(
                 jnp.max(jnp.abs(D_inv * Px), axis=1),
                 jnp.max(jnp.abs(D_inv * Aty), axis=1),
             ),
-            jnp.max(jnp.abs(D_inv * q_s), axis=1),
+            dual_norm_q,
         )
         conv = (r_prim <= config.eps_abs + config.eps_rel * prim_norm) & (
             r_dual <= config.eps_abs + config.eps_rel * dual_norm
@@ -1266,81 +317,50 @@ def solve_batch_fused(
         return jnp.where(done, idx, idx_new)
 
     def cond(state):
-        it, done = state[5], state[8]
+        it, done = state[4], state[7]
         return (~jnp.all(done)) & (it < config.max_iter)
 
-    hybrid = str(config.kernel_precision) == "hybrid"
-
     def body(state):
-        x, s, y, ax, idx, it, rp, rd, done, itl, bad = state
-        if hybrid:
-            # per-chunk precision schedule (VERDICT r4 item 2): run bf16x3
-            # (3 MXU passes) while the worst ACTIVE lane's unscaled residual
-            # is above the switch threshold, f32 HIGHEST (6 passes) below it
-            # — the bf16x3 floor sits near ~1e-4, so the cheap passes do the
-            # bulk contraction and the certified tail runs at full
-            # precision. First chunk: rp/rd start at +inf -> bf16x3. The
-            # between-chunk diagnostics below are exact HIGHEST either way,
-            # so a lane is only ever CERTIFIED against exact residuals.
-            r_active = jnp.max(
-                jnp.where(done, 0.0, jnp.maximum(rp, rd))
-            )
-            chunk_args = (idx, x, s, y, ax)
-            x2, s2, y2, ax2 = jax.lax.cond(
-                r_active <= config.hybrid_switch_residual,
-                lambda a: _iterate_chunk(
-                    op, q_s, l_s, u_s, *a, ck, config, interpret,
-                    dot_mode="highest",
-                ),
-                lambda a: _iterate_chunk(
-                    op, q_s, l_s, u_s, *a, ck, config, interpret,
-                    dot_mode="bf16x3",
-                ),
-                chunk_args,
-            )
-        else:
-            x2, s2, y2, ax2 = _iterate_chunk(
-                op, q_s, l_s, u_s, idx, x, s, y, ax, ck, config, interpret
-            )
-        # frozen lanes keep their converged state (kernel advances everyone;
-        # keeping the first-converged iterate makes iteration counts exact)
+        x, s, y, idx, it, rp, rd, done, itl, bad = state
+        x2, s2, y2 = chunk_fn(q_s, l_s, u_s, idx, x, s, y)
+        # frozen lanes keep their converged state (the kernel advances every
+        # lane; keeping the first-converged iterate makes iteration counts
+        # exact)
         keep = done[:, None]
         x2 = jnp.where(keep, x, x2)
         s2 = jnp.where(keep, s, s2)
         y2 = jnp.where(keep, y, y2)
-        ax2 = jnp.where(keep, ax, ax2)
-        rp2, rd2, conv, ratio, finite = diagnostics(x2, s2, y2, ax2)
+        rp2, rd2, conv, ratio, finite = diagnostics(x2, s2, y2)
         bad2 = bad | (~finite & ~done)
         done2 = done | conv | ~finite
         itl2 = jnp.where(done, itl, it + ck)
         idx2 = adapt(idx, ratio, done2)
-        return (x2, s2, y2, ax2, idx2, it + ck, rp2, rd2, done2, itl2, bad2)
+        return (x2, s2, y2, idx2, it + ck, rp2, rd2, done2, itl2, bad2)
 
-    zeros = jnp.zeros((B,), dt)
+    zeros = jnp.zeros((B_pad,), dt)
     state = (
-        x, s, y, ax, idx0,
+        x, s, y, idx0,
         jnp.asarray(0, jnp.int32),
         zeros + jnp.inf,
         zeros + jnp.inf,
         zeros > 1.0,
-        jnp.zeros((B,), jnp.int32),
-        zeros > 1.0,  # per-lane NaN/inf flag
+        jnp.zeros((B_pad,), jnp.int32),
+        zeros > 1.0,
     )
-    x, s, y, ax, idx, it, rp, rd, done, iters, bad = jax.lax.while_loop(
+    x, s, y, _, _, rp, rd, done, iters, bad = jax.lax.while_loop(
         cond, body, state
     )
-
     status = jnp.where(
         bad,
         STATUS_NUMERIC_ERROR,
         jnp.where(done, STATUS_CONVERGED, STATUS_MAX_ITER),
     ).astype(jnp.int32)
     return (
-        op.D[None] * x,
-        op.E[None] * y * c_inv,
-        E_inv * s,
-        status,
-        iters,
-        rp,
-        rd,
+        (D[None] * x)[:B, :n],
+        (E[None] * y * c_inv)[:B, :n],
+        (E_inv[None] * s)[:B, :n],
+        status[:B],
+        iters[:B],
+        rp[:B],
+        rd[:B],
     )

@@ -1,6 +1,6 @@
 """Discrete Algebraic Riccati Equation solver, jit/vmap-friendly.
 
-TPU-native replacement for ``ControlSystems.are(Discrete, A, B, Q, R)``
+In-house replacement for ``ControlSystems.are(Discrete, A, B, Q, R)``
 (reference design_mpc.jl:327) used for terminal-cost synthesis.
 
 Algorithm: Structure-Preserving Doubling (SDA). Quadratically convergent,
@@ -24,8 +24,8 @@ from typing import Tuple
 import jax
 import jax.numpy as jnp
 
-# full-precision matmuls: on TPU the default f32 matmul uses bf16 MXU passes,
-# which is far too loose for a quadratically-convergent Riccati iteration.
+# full-precision matmuls: a reduced-precision f32 matmul (TF32 on the GPU)
+# is far too loose for a quadratically-convergent Riccati iteration.
 HIGHEST = jax.lax.Precision.HIGHEST
 
 
@@ -37,7 +37,7 @@ def _mm(a, b):
 def solve_dare(A, B, Q, R, iters: int = 30):
     """Solve the DARE; returns P (nx, nx), symmetric PSD.
 
-    All math in float32 (TPU-native); the doubling iteration is
+    All math in float32; the doubling iteration is
     self-correcting so float32 reaches ~1e-5 relative residual on
     well-conditioned problems. Symmetrize each iterate for stability.
     """

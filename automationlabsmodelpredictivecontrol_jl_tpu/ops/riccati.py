@@ -14,8 +14,8 @@ with w = (e_x_1..N+1, e_u_1..N), H = blkdiag(Q.., P_term, R..). The w-update
 is an affine LQR: its *factorization* (Riccati matrices + feedback gains)
 depends only on (A, B, weights, rho) — computed ONCE at design time per
 rho-grid entry — while each iteration only reruns the affine backward sweep
-and the forward rollout: O(N) small GEMMs that batch over scenarios on the
-MXU (lanes share all gain matrices).
+and the forward rollout: O(N) small GEMMs that batch over scenarios (lanes
+share all gain matrices).
 
 Per-iteration cost: O(N (nx^2 + nx nu)) vs condensed O((N nu)^2 + N^2 nx nu);
 memory O(N) vs O(N^2). The crossover makes this the long-horizon engine.
@@ -101,11 +101,12 @@ class RiccatiConfig:
     # parallel-in-time sweeps: the affine backward/forward recurrences have
     # DESIGN-TIME-CONSTANT matrices, so Hillis-Steele doubling levels can be
     # precomputed per rho and each O(N) sweep evaluated in log2(N) batched
-    # multiply-adds. MEASURED off by default: as plain-XLA einsums the level
-    # updates materialize (B, N, nx, nx) broadcasts and run HBM-bound —
-    # TPU v5e, QTP h100 B=4096: 4.5k solves/s vs 12.8k for the pipelined
-    # sequential lax.scan. Kept as the correctness-tested reference for an
-    # in-VMEM (Pallas, horizon-major layout) version of the same algorithm.
+    # multiply-adds. Off by default: as plain-XLA einsums the level updates
+    # materialize (B, N, nx, nx) broadcasts and were measured memory-bound
+    # and about 3x slower than the sequential lax.scan on another
+    # accelerator; not yet measured on the H100. Kept as the
+    # correctness-tested reference for an on-chip (horizon-major layout)
+    # kernel of the same algorithm.
     parallel_sweeps: bool = False
 
 
@@ -590,7 +591,7 @@ def solve_sparse(
     ridx0 = jnp.asarray(_initial_ridx(op, config), jnp.int32)
     split_x = op.split_interior or op.split_terminal
     # sweep implementation: parallel-in-time doubling (log2 N fused batched
-    # multiply-adds, the TPU-native choice) vs the sequential lax.scan
+    # multiply-adds) vs the sequential lax.scan
     _affine_solve = (
         _lqr_affine_solve_pscan
         if (config.parallel_sweeps and op.bwd_levels is not None)

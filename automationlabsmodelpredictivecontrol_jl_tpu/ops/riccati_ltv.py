@@ -73,7 +73,7 @@ def ltv_factorize(
     Qb_term: Array,  # (nx, nx) node-N cost
 ) -> LtvFactors:
     """Traced backward Riccati over per-step (A_k, B_k); O(N) scan of small
-    dense inverses (nu x nu — fine on the MXU)."""
+    dense inverses (nu x nu)."""
     dt = jnp.float32
     nu = Bs.shape[2]
     eye_u = jnp.eye(nu, dtype=dt)

@@ -4,7 +4,7 @@ The reference reserved an ``economic_model_predictive_control`` branch in
 its entry point but shipped it dead (main_mpc.jl:54-83 commented out;
 ``_economic_model_predictive_control_design`` never existed — EMPC was
 removed in v0.1.4 per its CHANGELOG). Here the capability is implemented
-for real, TPU-first:
+for real, batched on the device:
 
   minimize  sum_{k=0..N-1} l(x_k, u_k)  +  Vf(x_N)
   s.t.      x_{k+1} = f(x_k, u_k),  u in U,  [x in X],  [terminal set]

@@ -25,7 +25,7 @@ symbolically as affine expressions over [x_k; u_k; relu outputs]. The
 trace is validated numerically against the family's own ``apply_fn``.
 
 This engine runs on the host (like the reference's SCIP C solver — the
-runtime's ABI boundary, SURVEY.md §3.2); the TPU-shaped alternative for
+runtime's ABI boundary, SURVEY.md §3.2); the batched device alternative for
 ReLU-network MPC remains the exact nonlinear SQP path.
 """
 

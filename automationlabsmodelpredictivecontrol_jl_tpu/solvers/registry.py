@@ -15,7 +15,7 @@ in-house engine: linear programs solve on the batched ADMM QP engine
 Ipopt-equivalent), and mixed-integer programs on the in-house
 branch-and-bound MIQP solver in the native C++ runtime (the
 SCIP-equivalent; big-M ReLU transcription in solvers/milp.py, host-side —
-ReLU-network MPC on TPU is better served by the exact nonlinear path).
+batched ReLU-network MPC is better served by the exact nonlinear path).
 """
 
 from __future__ import annotations

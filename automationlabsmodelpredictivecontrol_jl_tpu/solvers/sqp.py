@@ -2,9 +2,9 @@
 
 The reference transcribes neural dynamics neuron-by-neuron into JuMP
 @NLconstraints and hands the NLP to Ipopt (fnn/...:63-189,
-solver_selection.jl:100-106). TPU-native redesign: single-shooting SQP —
+solver_selection.jl:100-106). Batched redesign: single-shooting SQP —
 
-  1. roll the learned model forward (lax.scan; dynamics are MXU matmuls),
+  1. roll the learned model forward (lax.scan; dynamics are matmuls),
   2. linearize along the trajectory with jax.jacfwd (the same derivative
      the reference gets from ForwardDiff, SURVEY §3.3),
   3. build the condensed Gauss-Newton LTV-QP in the input deviations
@@ -82,7 +82,7 @@ class SqpConfig:
     # (None = auto: matched to the input-weight scale like ops/riccati.py)
     ms_admm_iters: int = 120
     ms_rho: Optional[float] = None
-    # refine_steps=1 is the Newton-Schulz safety net (r4 review): the MXU
+    # refine_steps=1 is the Newton-Schulz safety net: the matmul-only
     # NS inverse saturates at an f32 residual floor ~kappa*eps, and one
     # refinement step against the exact K contracts the K-solve error by
     # that factor (measured: kappa=1e4 residual 1.9e-2 -> 1.2e-6). Weak-R

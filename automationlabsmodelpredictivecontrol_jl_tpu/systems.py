@@ -1,6 +1,6 @@
 """Dynamical system types + discretization + linearization.
 
-Absorbs, TPU-natively, the capabilities the reference delegates to external
+Absorbs, in JAX, the capabilities the reference delegates to external
 packages (SURVEY.md §1):
 
 - MathematicalSystems' four dispatched system types
@@ -241,7 +241,7 @@ def user_function_system(
 def linearize(system: Any, x0: Array, u0: Array) -> Tuple[Array, Array]:
     """Jacobian linearization A = ∂f/∂x, B = ∂f/∂u at (x0, u0).
 
-    TPU-native replacement for
+    In-house replacement for
     AutomationLabsSystems.proceed_system_linearization (ForwardDiff jacobian
     of the Flux net; design_mpc.jl:319-323, fnn/...:42-46) via jax.jacfwd.
     """

@@ -1,4 +1,4 @@
-"""Core type vocabulary of the TPU-native MPC framework.
+"""Core type vocabulary of the MPC framework.
 
 Mirrors the capability surface of the reference package's
 ``src/types/types.jl`` (ReferencesStateInput types.jl:24-27,
@@ -43,7 +43,7 @@ STATUS_NAMES = {
 class Box:
     """Axis-aligned box (hyperrectangle) constraint set.
 
-    TPU-native replacement for the reference's LazySets.Hyperrectangle
+    In-house replacement for the reference's LazySets.Hyperrectangle
     state/input sets unpacked via vertices_list (linear/...:34-38).
     """
 

@@ -1,284 +1,147 @@
-"""Speed-of-light / roofline accounting for the hot kernels.
+"""Speed-of-light / roofline accounting for the batched ADMM solves.
 
 BASELINE.md north star: "measure rollout + QP kernel speed-of-light per
 chip". The reference has no profiling story at all (its entire surface is
 wall-clock prints, /root/reference/test/runtests.jl:10-18), so this module
-is new TPU-native surface: an analytic flops/bytes model of the fused ADMM
-iteration (ops/admm_pallas.py) and the sparse Riccati sweeps
-(ops/riccati_pallas.py), compared against the chip's MXU/HBM roofline to
-yield a defensible ``kernel_sol_fraction``.
+is new surface: an analytic flops/bytes model of a batched ADMM tier,
+compared against the device's published peaks to give ``sol_fraction``.
 
 Two flop counts are reported:
 
-- **useful** flops: the algorithmically necessary multiply-adds at the true
-  (n, m) problem sizes.
-- **padded** flops: what the MXU actually executes after tiling the small
-  MPC operands up to the hardware tile (lane=128, sublane=8 for f32).
-  ``sol_fraction`` is computed against the padded count — that is the
-  honest "how close to the hardware ceiling does the kernel run" number;
-  ``mfu`` is the useful-flops fraction (how much of the ceiling is spent on
-  real work vs padding).
+- **useful** flops: the algorithmically necessary multiply-adds for ONE rho
+  at the true (n, m) problem sizes;
+- **executed** flops: what the implementation executes — every rho-grid
+  candidate, and on the fused kernel the power-of-two padding of n and R.
 
-Peak numbers are public per-chip specs (bf16 MXU TFLOP/s, HBM GB/s). The
-kernels default to f32 at ``Precision.HIGHEST`` (6 bf16 MXU passes —
-hence the /6 on the f32 ceiling). The precision lever was MEASURED on
-TPU v5e (r4, headline h20 config, B=16k, rho grid (1, 10)), via
-``AdmmConfig.kernel_precision``:
-
-- ``bf16x3`` (manual hi/lo 3-pass split): control sequences land within
-  6.4e-4 of the HIGHEST solution and the program runs 1.22x faster —
-  but the iteration's residual floor sits ABOVE eps=1e-6, so the honest
-  convergence certificate fails on ~every lane (0.02% certified). A
-  loosened eps would hide that, not fix it; 6e-4 also misses the 1e-4
-  parity bar.
-- ``default`` (1-pass bf16): stalls outright — u error ~0.3, 0%
-  converged. The r3 claim that DEFAULT stalls is confirmed by record.
-
-So HIGHEST stays the default because the *certificate*, not the
-iterate, is what bf16 cannot afford; the knob + pinned tests keep the
-measurement reproducible.
+The solvers run f32 at IEEE precision (``Precision.HIGHEST``): on the GPU
+that is the fp32 rate outside the tensor cores, so the compute ceiling is
+the table's ``fp32_flops``. Peaks come from one table keyed by
+``device_kind``; a device that is not in it is an error, not a default.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Optional
+from typing import Any, Dict
 
 Array = Any
 
-# (bf16 peak flop/s, HBM bytes/s) per chip generation — public spec sheet
-# numbers. "host" is a placeholder so the model runs on the CPU test mesh.
+# device_kind -> published peaks. Source: NVIDIA H100 SXM data sheet, dense
+# rates without sparsity, at the 700 W power limit. fp32_flops is the rate
+# outside the tensor cores (IEEE f32 / Precision.HIGHEST).
 _DEVICE_PEAKS = {
-    "v4": (275e12, 1228e9),
-    "v5 lite": (197e12, 819e9),
-    "v5e": (197e12, 819e9),
-    "v5p": (459e12, 2765e9),
-    "v6 lite": (918e12, 1640e9),
-    "v6e": (918e12, 1640e9),
-    "host": (1e12, 100e9),
+    "NVIDIA H100 80GB HBM3": {
+        "fp32_flops": 67e12,
+        "tf32_flops": 495e12,
+        "bf16_flops": 989e12,
+        "hbm_bytes_per_s": 3.35e12,
+    },
 }
 
-# f32 Precision.HIGHEST = 6-pass bf16 emulation on the MXU
-_F32_HIGHEST_PASSES = 6
 
-_LANE = 128  # TPU vector lane count (last-dim tile)
-_SUBLANE = 8  # f32 sublane tile (second-minor dim)
+def device_peaks(device=None) -> Dict[str, Any]:
+    """Published peaks of ``device`` (default: the first JAX device).
 
+    Raises ``ValueError`` for a ``device_kind`` that is not in the table."""
+    if device is None:
+        import jax
 
-def device_peaks(device=None) -> Dict[str, float]:
-    """(flops_peak_f32_highest, hbm_bytes_per_s) for a jax device."""
-    import jax
-
-    device = device or jax.devices()[0]
-    kind = getattr(device, "device_kind", "host").lower()
-    for key, (fl, bw) in _DEVICE_PEAKS.items():
-        if key in kind:
-            return {
-                "device_kind": kind,
-                "bf16_flops": fl,
-                "f32_highest_flops": fl / _F32_HIGHEST_PASSES,
-                "hbm_bytes_per_s": bw,
-            }
-    fl, bw = _DEVICE_PEAKS["host"]
-    return {
-        "device_kind": kind,
-        "bf16_flops": fl,
-        "f32_highest_flops": fl / _F32_HIGHEST_PASSES,
-        "hbm_bytes_per_s": bw,
-    }
+        device = jax.devices()[0]
+    kind = str(getattr(device, "device_kind", ""))
+    for key, peaks in _DEVICE_PEAKS.items():
+        if key.lower() == kind.lower():
+            return {"device_kind": key, **peaks}
+    raise ValueError(
+        f"no published peaks for device_kind {kind!r}; known: "
+        f"{sorted(_DEVICE_PEAKS)}"
+    )
 
 
-def _pad(v: int, tile: int) -> int:
-    return ((v + tile - 1) // tile) * tile
-
-
-def _matmul_flops(b: int, k: int, n: int, padded: bool) -> float:
-    """Flops of a (b,k)x(k,n) dot; padded = after MXU tiling."""
-    if padded:
-        b, k, n = _pad(b, _SUBLANE), _pad(k, _LANE), _pad(n, _LANE)
-    return 2.0 * b * k * n
+def _pow2(v: int) -> int:
+    return 1 << max(0, int(v) - 1).bit_length()
 
 
 def admm_iteration_model(
-    n: int, m: int, R: int, block: int = 1024, refine_steps: int = 0
+    n: int, m: int, R: int, batch: int, refine_steps: int = 0,
+    fused: bool = False,
 ) -> Dict[str, float]:
-    """Per-iteration flops/bytes of the fused ADMM kernel (v2, lane-packed)
-    for one block of ``block`` scenario lanes (ops/admm_pallas.py).
+    """Flops of one ADMM iteration over ``batch`` lanes.
 
-    Two GEMM dispatches per iteration:
-    1. ``[y ; s] @ [A | A'diag(rho_r)' ..]`` — (2·block, m)@(m, n + R·n)
-    2. ``rhs_all @ blockdiag_r([K_r⁻¹ | K_r⁻¹A'])`` — (block, R·n)@(R·n, R·(n+m))
-    plus, per refinement step, (block, n)@(n, R·n) and (block, n)@(n, R·(n+m)).
-
-    ``useful`` counts the single-rho algorithmically necessary multiply-adds
-    (A'y, A'ρs, the K-solve, A·x, and the refinement dots for ONE rho) —
-    the R-grid redundancy and MXU tile padding are both implementation
-    overheads charged only to ``padded``. State stays in VMEM for the whole
-    chunk; per-chunk HBM bytes live in :func:`admm_chunk_bytes`.
-    """
-    useful = (
-        2.0 * block * m * n * 3  # A'y, A'ρs, A·x
-        + 2.0 * block * n * n  # K-solve
-        + refine_steps * (2.0 * block * n * n * 2 + 2.0 * block * n * m)
-    )
-    padded = (
-        _matmul_flops(2 * block, m, n + R * n, True)  # GEMM 1
-        + _matmul_flops(block, R * n, R * (n + m), True)  # GEMM 2
-        + refine_steps
-        * (
-            _matmul_flops(block, n, R * n, True)
-            + _matmul_flops(block, n, R * (n + m), True)
-        )
-    )
-    return {"useful_flops": useful, "padded_flops": padded, "block": block}
+    ``useful``: the single-rho K-solve (n² MACs, plus 2n² per refinement
+    step) and, unless A is applied elementwise on the fused box-QP kernel,
+    the A-side products A'y, A'ρs and A·x (3mn MACs). ``executed``: the
+    R-candidate K-solves as run — on the fused kernel at the padded
+    widths n_pad = pow2(n), R_pad = pow2(R)."""
+    k = 1 + 2 * refine_steps
+    a_side = 0.0 if fused else 3.0 * m * n
+    useful = 2.0 * batch * (k * n * n + a_side)
+    if fused:
+        n_p = max(16, _pow2(n))
+        executed = 2.0 * batch * k * n_p * _pow2(R) * n_p
+    else:
+        executed = 2.0 * batch * (k * R * n * n + a_side)
+    return {"useful_flops": useful, "executed_flops": executed}
 
 
-def admm_diag_iteration_model(
-    n: int, R: int, block: int = 1024, refine_steps: int = 0
-) -> Dict[str, float]:
-    """Per-iteration flops of the v3 transposed diag-A kernel
-    (ops/admm_pallas._iterate_kernel_diag) for one lane block.
+def admm_bytes_model(
+    n: int, m: int, batch: int, iterations: float, chunk: int, fused: bool
+) -> float:
+    """Least device-memory traffic of a tier.
 
-    One MXU dispatch per iteration (plus two per refinement step), each a
-    (R·n, n)@(n, block) dot in the transposed layout: the small operator
-    dim R·n sits in the sublane-granular M position (pad 8), the contraction
-    n pads to the 128 lane tile, and the lane axis fills N densely. Every
-    A-side product is elementwise (VPU) because A is diagonal — ``useful``
-    is the single-rho K-solve work only; the R-candidate redundancy and the
-    n→128 contraction padding are charged to ``padded``.
-    """
-    useful = 2.0 * block * n * n * (1 + 2 * refine_steps)
-    padded = (1 + 2 * refine_steps) * _matmul_flops(R * n, n, block, True)
-    return {"useful_flops": useful, "padded_flops": padded, "block": block}
-
-
-def admm_mixed_iteration_model(
-    n: int, m: int, R: int, block: int = 1024, refine_steps: int = 0
-) -> Dict[str, float]:
-    """Per-iteration flops of the v3-mixed transposed kernel
-    (ops/admm_pallas._iterate_kernel_mixed): the diagonal box block is VPU
-    work; the MXU sees the A2 (ms, n) dense tail twice per iteration
-    (A2'y-and-A2'(rho s) against the lane axis, A2 xt for the image), the
-    K-solve candidates once, plus two K dots per refinement step."""
-    ms = m - n
-    a2_flops = 2.0 * _matmul_flops(n, ms, block, True)  # A2' applications
-    a2_img = _matmul_flops(ms, n, block, True)  # A2 @ xt
-    ksolve = _matmul_flops(R * n, n, block, True)
-    per_refine = 2.0 * _matmul_flops(R * n, n, block, True) + a2_img
-    useful = (
-        2.0 * block * (2.0 * ms * n + n * n + ms * n)
-        + refine_steps * 2.0 * block * (2 * n * n + ms * n)
-    )
-    padded = a2_flops + ksolve + a2_img + refine_steps * per_refine
-    return {"useful_flops": useful, "padded_flops": padded, "block": block}
-
-
-def admm_diag_chunk_bytes(n: int, R: int, block: int = 1024) -> float:
-    """HBM bytes per v3 kernel launch for one block: transposed lane state
-    in/out + the (tiny) stacked K operators."""
-    lane_in = block * (7 * n + 1) * 4  # q,l,u,idx,x,s,y,ax
-    lane_out = block * 4 * n * 4
-    shared = (2 * R * n * n + n + 2 * R * n) * 4
-    return float(lane_in + lane_out + shared)
-
-
-def admm_chunk_bytes(n: int, m: int, R: int, block: int = 1024) -> float:
-    """HBM bytes moved per kernel launch for one block: lane state + vectors
-    in/out plus the replicated packed operator matrices."""
-    lane_in = block * (2 * n + 4 * m + 1) * 4  # q,l,u,idx,x,s,y,ax
-    lane_out = block * (n + 3 * m) * 4
-    shared = (
-        m * (n + R * n)  # rhs1
-        + R * n * R * (n + m)  # wcat (blockdiag, stored dense)
-        + n * R * n  # kcat
-        + n * R * (n + m)  # wrow
-        + 2 * R * m  # rho vecs
-    ) * 4
-    return float(lane_in + lane_out + shared)
-
-
-def admm_diag_model(n: int, m: int, batch: int) -> Dict[str, float]:
-    """Between-chunk diagnostics (plain XLA): Px, Aᵀy matmuls + elementwise
-    reductions over the full batch, all streamed through HBM."""
-    flops = _matmul_flops(batch, n, n, False) + _matmul_flops(batch, m, n, False)
-    padded = _matmul_flops(batch, n, n, True) + _matmul_flops(batch, m, n, True)
-    # read x,s,y,ax + q,l,u; write residuals/masks (~4 scalars/lane)
-    bytes_ = batch * (2 * n + 5 * m + 8) * 4.0
-    return {"useful_flops": flops, "padded_flops": padded, "bytes": bytes_}
+    Fused kernel: per chunk each lane reads q, l, u, its rho index and the
+    state (x, s, y) and writes the state back. Vmapped engine: the state
+    (x, s, y, Ax) is read and written at least once per iteration. Both
+    add the between-chunk diagnostics' read of the state and the bounds."""
+    n_chunks = max(1.0, float(iterations) / max(1, chunk))
+    diag = batch * (2 * n + 5 * m + 8) * 4.0 * n_chunks
+    if fused:
+        n_p = max(16, _pow2(n))
+        return batch * (9 * n_p + 1) * 4.0 * n_chunks + diag
+    return batch * 2 * (n + 3 * m) * 4.0 * float(iterations) + diag
 
 
 def _tier_model(op, config, batch: int, iterations: float) -> Dict[str, float]:
-    """(padded/useful flops, bytes) for one solver tier executing
-    ``iterations`` lockstep iterations over ``batch`` lanes."""
-    from ..ops.admm_pallas import (
-        _pick_block,
-        _pick_block_diag,
-        _pick_block_mixed,
-    )
-
+    """(useful / executed flops, bytes) for one solver tier running
+    ``iterations`` lockstep iterations over ``batch`` lanes; box-only
+    operators are modelled on the fused kernel, the rest on the vmapped
+    engine."""
     n = int(op.K_invs.shape[1])
     m = int(op.A_s.shape[0])
     R = int(op.rho_grid.shape[0])
     refine = int(getattr(config, "refine_steps", 0))
-    diag_a = bool(getattr(op, "diag_a", False))
-    mixed_a = bool(getattr(op, "mixed_a", False))
-    if diag_a:
-        block = batch if batch < 8 else _pick_block_diag(batch, n, R, refine)
-    elif mixed_a:
-        block = batch if batch < 8 else _pick_block_mixed(
-            batch, n, m, R, refine
-        )
-    else:
-        block = batch if batch < 8 else _pick_block(batch, n, m, R, refine)
-    # _pick_block returns 0 when no block fits VMEM (such shapes run the
-    # vmapped engine, not the kernel); model the smallest tile so the
-    # report stays finite instead of dividing by zero (r4 review)
-    block = block or 8
-    n_blocks = max(1, batch // block)
-    chunk = max(1, int(config.check_interval))
-    n_chunks = max(1.0, float(iterations) / chunk)
-
-    if diag_a:
-        it = admm_diag_iteration_model(n, R, block, refine_steps=refine)
-        kernel_bytes = admm_diag_chunk_bytes(n, R, block)
-    elif mixed_a:
-        it = admm_mixed_iteration_model(n, m, R, block, refine_steps=refine)
-        kernel_bytes = admm_chunk_bytes(n, m, R, block)  # lane-state bound
-    else:
-        it = admm_iteration_model(n, m, R, block, refine_steps=refine)
-        kernel_bytes = admm_chunk_bytes(n, m, R, block)
-    dg = admm_diag_model(n, m, batch)
+    fused = bool(getattr(op, "diag_a", False)) and not op.n_ball
+    it = admm_iteration_model(n, m, R, batch, refine, fused)
     return {
         "n": n,
         "m": m,
         "R": R,
-        "padded_flops": it["padded_flops"] * iterations * n_blocks
-        + dg["padded_flops"] * n_chunks,
-        "useful_flops": it["useful_flops"] * iterations * n_blocks
-        + dg["useful_flops"] * n_chunks,
-        "bytes": kernel_bytes * n_chunks * n_blocks + dg["bytes"] * n_chunks,
+        "executed_flops": it["executed_flops"] * iterations,
+        "useful_flops": it["useful_flops"] * iterations,
+        "bytes": admm_bytes_model(
+            n, m, batch, iterations, int(config.check_interval), fused
+        ),
     }
 
 
-def _report(tiers, measured_time_s: float, device=None) -> Dict[str, float]:
+def _report(tiers, measured_time_s: float, device=None) -> Dict[str, Any]:
     peaks = device_peaks(device)
-    flops_padded = sum(t["padded_flops"] for t in tiers)
+    flops_executed = sum(t["executed_flops"] for t in tiers)
     flops_useful = sum(t["useful_flops"] for t in tiers)
     bytes_total = sum(t["bytes"] for t in tiers)
-    t_mxu = flops_padded / peaks["f32_highest_flops"]
-    t_hbm = bytes_total / peaks["hbm_bytes_per_s"]
-    roofline_t = max(t_mxu, t_hbm)
+    t_compute = flops_executed / peaks["fp32_flops"]
+    t_memory = bytes_total / peaks["hbm_bytes_per_s"]
+    roofline_t = max(t_compute, t_memory)
     return {
         "device_kind": peaks["device_kind"],
         "n": tiers[0]["n"],
         "m": tiers[0]["m"],
         "rho_grid": tiers[0]["R"],
-        "achieved_padded_tflops": flops_padded / measured_time_s / 1e12,
+        "achieved_executed_tflops": flops_executed / measured_time_s / 1e12,
         "achieved_useful_tflops": flops_useful / measured_time_s / 1e12,
         "roofline_time_s": roofline_t,
         "measured_time_s": measured_time_s,
-        "bound": "mxu" if t_mxu >= t_hbm else "hbm",
+        "bound": "compute" if t_compute >= t_memory else "memory",
         "sol_fraction": roofline_t / measured_time_s,
-        "mfu": (flops_useful / measured_time_s) / peaks["f32_highest_flops"],
+        "mfu": (flops_useful / measured_time_s) / peaks["fp32_flops"],
     }
 
 
@@ -289,13 +152,13 @@ def speed_of_light(
     mean_iterations: float,
     measured_time_s: float,
     device=None,
-) -> Dict[str, float]:
-    """Roofline report for a measured fused-ADMM batch solve.
+) -> Dict[str, Any]:
+    """Roofline report for a measured batched ADMM solve.
 
-    Returns achieved flop/s, the roofline lower-bound time (max of the MXU
-    and HBM limbs over kernel chunks + diagnostics), ``sol_fraction`` =
-    roofline_time / measured_time (1.0 = running at the hardware ceiling)
-    and ``mfu`` (useful-flops utilization of the f32-HIGHEST ceiling).
+    Returns achieved flop/s, the roofline lower-bound time (max of the
+    compute and memory limbs), ``sol_fraction`` = roofline_time /
+    measured_time (1.0 = running at the hardware ceiling) and ``mfu``
+    (useful-flops share of the fp32 peak).
 
     ``mean_iterations`` should be the iterations the hardware *executed*
     (the while_loop runs all lanes in lockstep until the slowest converges —
@@ -312,35 +175,12 @@ def speed_of_light(
 
 def speed_of_light_tiered(
     tiers, measured_time_s: float, device=None
-) -> Dict[str, float]:
+) -> Dict[str, Any]:
     """Roofline report for a multi-tier escalated solve: ``tiers`` is a list
     of (op, config, batch, executed_iterations) — e.g. the full batch at the
-    tier-1 cap plus the straggler bucket at the tier-2 cap."""
+    tier-1 cap plus the straggler bucket at the tier-2 depth."""
     return _report(
         [_tier_model(op, cfg, b, it) for (op, cfg, b, it) in tiers],
         measured_time_s,
         device,
     )
-
-
-def riccati_iteration_model(
-    N: int, nx: int, nu: int, block: int
-) -> Dict[str, float]:
-    """Per-iteration flops of the sparse Riccati-ADMM engine for one block:
-    backward affine sweep (prefactorized gains: K_k e_k + d-recursion
-    matvecs) + forward rollout + box projections, O(N) in the horizon."""
-    per_step_useful = (
-        2.0 * block * nx * nx * 2  # P-recursion matvecs (affine term)
-        + 2.0 * block * nx * nu  # gain application K_k x
-        + 2.0 * block * nx * (nx + nu)  # forward rollout A x + B u
-    )
-    per_step_padded = (
-        _matmul_flops(block, nx, nx, True) * 2
-        + _matmul_flops(block, nx, nu, True)
-        + _matmul_flops(block, nx + nu, nx, True)
-    )
-    return {
-        "useful_flops": per_step_useful * N,
-        "padded_flops": per_step_padded * N,
-        "block": block,
-    }

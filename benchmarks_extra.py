@@ -4,11 +4,13 @@ Both are capability surface the reference reserves but never ships (the
 economic branch is commented out of main_mpc.jl:54-83 and removed in
 v0.1.4; FuzzyProgramming is an orphaned tag, types.jl:223). They are live
 engines here, so they get perf rows like every other config. Merges the
-rows into BENCH_SUITE.json (replacing same-named rows).
+rows into ``--out`` (BENCH_SUITE.json, replacing same-named rows).
 
-Run on TPU: ``python benchmarks_extra.py``.
+Run on the GPU: ``python benchmarks_extra.py``; ``--tiny`` rehearses the
+mechanics at tiny sizes on any platform.
 """
 
+import argparse
 import json
 import os
 import time
@@ -28,7 +30,7 @@ def _timeit(fn, reps=5):
     return (time.perf_counter() - t0) / reps, out
 
 
-def main():
+def main(tiny: bool = False, out: str = "BENCH_SUITE.json"):
     import jax
     import jax.numpy as jnp
 
@@ -41,6 +43,7 @@ def main():
     x_ref = np.full(4, 0.65, np.float32)
     u_ref = np.full(2, 1.2, np.float32)
     rows = []
+    size = lambda b: 16 if tiny else b  # batch per row
 
     # ---- economic MPC: generic stage cost, exact-Newton SQP --------------
     sys_lin = qtp.linearized_discrete_system()
@@ -52,7 +55,7 @@ def main():
         ex = x - xr
         return 10.0 * (u @ u) + 50.0 * ex @ ex
 
-    B = 256
+    B = size(256)
     N = 10
     c_e = mpc.proceed_controller(
         sys_lin, "economic_model_predictive_control", N, 5.0, x_ref, u_ref,
@@ -101,8 +104,7 @@ def main():
 
     # wide-plant row: 16 states / 8 inputs / horizon 30 — dimensional
     # generality beyond the reference's only fixture (the 4-state QTP),
-    # on the default auto-routed path. n = N*nu = 240 spans two MXU tiles,
-    # so padding waste is far lower than the QTP rows.
+    # on the default batch route (n = N*nu = 240).
     from automationlabsmodelpredictivecontrol_jl_tpu.benchmarks import big
 
     sys_big = big.random_stable_system(nx=16, nu=8, seed=0)
@@ -111,7 +113,7 @@ def main():
         np.zeros(16, np.float32), np.zeros(8, np.float32),
         mpc_Q=10.0, mpc_R=0.1,
     )
-    B = 4096
+    B = size(4096)
     x0s_big = jnp.asarray(
         np.clip(0.4 * rng.standard_normal((B, 16)), -0.95, 0.95), np.float32
     )
@@ -127,15 +129,13 @@ def main():
         "batch": B,
         "converged_fraction": round(int(diag.n_converged) / B, 4),
         "mean_iterations": round(float(diag.mean_iterations), 1),
-        "routed": "fused" if parallel.fused_supported(c_big) else "vmap",
     })
     print(json.dumps(rows[-1]))
 
-    # wider + longer wide-plant rows (VERDICT r4 item 8): nx32/nu16, and an
-    # h100 wide case — the padding story changes shape with nx (n = N*nu
-    # reaches 480/800 here) and the dimensional-generality claim should not
-    # rest on a single point.
-    for nx_w, nu_w, N_w, B_w in ((32, 16, 30, 2048), (16, 8, 100, 1024)):
+    # wider + longer wide-plant rows: nx32/nu16, and an h100 wide case
+    # (n = N*nu reaches 480/800 here) — the dimensional-generality claim
+    # should not rest on a single point.
+    for nx_w, nu_w, N_w, B_w in ((32, 16, 30, size(2048)), (16, 8, 100, size(1024))):
         sys_w = big.random_stable_system(nx=nx_w, nu=nu_w, seed=0)
         c_w = mpc.proceed_controller(
             sys_w, "model_predictive_control", N_w, 1.0,
@@ -158,18 +158,21 @@ def main():
             "batch": B_w,
             "converged_fraction": round(int(diag.n_converged) / B_w, 4),
             "mean_iterations": round(float(diag.mean_iterations), 1),
-            "routed": "fused" if parallel.fused_supported(c_w) else "vmap",
         })
         print(json.dumps(rows[-1]))
 
-    # merge into BENCH_SUITE.json
-    path = "BENCH_SUITE.json"
-    suite = json.load(open(path)) if os.path.exists(path) else []
+    # merge into the suite record
+    suite = json.load(open(out)) if os.path.exists(out) else []
     names = {r["metric"] for r in rows}
     suite = [r for r in suite if r["metric"] not in names] + rows
-    with open(path, "w") as f:
+    with open(out, "w") as f:
         json.dump(suite, f, indent=1)
 
 
 if __name__ == "__main__":
-    main()
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--tiny", action="store_true",
+                    help="tiny sizes: rehearse the mechanics on any platform")
+    ap.add_argument("--out", default="BENCH_SUITE.json")
+    args = ap.parse_args()
+    main(tiny=args.tiny, out=args.out)

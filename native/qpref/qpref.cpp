@@ -1,7 +1,7 @@
 // qpref — in-house dense ADMM QP reference solver (double precision).
 //
 // The reference package reaches its native code through the OSQP C solver
-// (solver_selection.jl:92-98). This is the TPU framework's own native
+// (solver_selection.jl:92-98). This is the framework's own native
 // counterpart: an operator-splitting QP solver with the same algorithm
 // family as the on-device f32 engine (ops/admm.py), but in f64 on the host.
 // Roles: (a) independent golden oracle for parity tests, (b) CPU fallback

@@ -1,14 +1,9 @@
-"""Per-file test runner with segfault retry + committed status artifact.
+"""Per-file test runner with crash retry + a status record.
 
-The environment's remote XLA compile service occasionally segfaults mid-
-suite (observed in rounds 3 and 4: `Fatal Python error: Segmentation
-fault` inside `backend_compile_and_load` — an infra flake, not a code
-bug; the failing file passes standalone). A monolithic pytest run dies
-with it and reports nothing. This runner executes each test file in its
-own process, retries once on abnormal termination (segfault/abort), and
-writes a machine-readable summary so a green run is *recorded*, not just
-observed (VERDICT r3: "nothing in the repo records a green slow-suite
-run").
+A monolithic pytest run that dies in one file (a segfault or abort in a
+native library) reports nothing. This runner executes each test file in
+its own process, retries once on abnormal termination, and writes a
+machine-readable summary so a green run is *recorded*, not just observed.
 
 Usage:
   python scripts/run_suite.py            # fast suite (-m "not slow")

@@ -162,12 +162,18 @@ def test_nan_poisoned_qp_reports_numeric_error():
 
 
 def test_nan_poisoned_fused_kernel_reports_numeric_error():
+    """The fused box-QP kernel (Pallas interpreter) keeps the per-lane NaN
+    guard: the poisoned lane reports STATUS_NUMERIC_ERROR, the others
+    converge."""
     from automationlabsmodelpredictivecontrol_jl_tpu.ops import admm_pallas
 
-    P, q, A, l, u = _random_qp(1)
+    P, q, _, _, _ = _random_qp(1)
+    n = q.size
+    A = np.eye(n)  # box-only: the operator the kernel takes
+    l, u = -np.ones(n), np.ones(n)
     cfg = admm.AdmmConfig(max_iter=500, eps_abs=1e-6, eps_rel=1e-6)
-    eq = np.isfinite(l) & np.isfinite(u) & (l == u)
-    op = admm.build_operator(P, A, eq, 0, cfg)
+    op = admm.build_operator(P, A, np.zeros(n, bool), 0, cfg)
+    assert op.diag_a
     B = 4
     qb = np.tile(q, (B, 1)).astype(np.float32)
     qb[2, 0] = np.nan  # poison one lane only

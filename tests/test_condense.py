@@ -1,5 +1,5 @@
 """Condensed-QP transcription: prediction operators + structural row layout
-(the TPU-native analogue of the reference's JuMP constraint-count tests,
+(the analogue of the reference's JuMP constraint-count tests,
 modeler_implementation_test.jl / SURVEY §4b)."""
 
 import jax

@@ -115,34 +115,32 @@ def test_riccati_matches_frozen_golden(cfg):
     )
 
 
-# the fused Pallas kernels (v3 diag for box-only configs, v3-mixed for
-# state-constrained / terminal-row configs) — previously only cross-checked
-# against the vmapped engine, never against frozen f64 data (r5). The
-# contractive ball block is unsupported by the kernels and absent from the
-# golden matrix anyway.
-_FUSED_OK = [c for c in _FEASIBLE if c["terminal"] != "contractive"]
+# the batched default route (parallel.solve_batch_auto: the vmapped engine
+# off the GPU) must land on the frozen optimum like the per-solve engine; on
+# the box-only configs the fused chunk kernel (Pallas interpreter here) is
+# pinned to the same data. The contractive ball block is absent from the
+# golden matrix.
+_BATCH_OK = [c for c in _FEASIBLE if c["terminal"] != "contractive"]
 
 
 @pytest.mark.parametrize(
-    "cfg", _FUSED_OK, ids=[c["key"] for c in _FUSED_OK]
+    "cfg", _BATCH_OK, ids=[c["key"] for c in _BATCH_OK]
 )
-def test_fused_kernels_match_frozen_golden(cfg):
-    """The batched Pallas path (interpret on CPU) must land on the same
-    frozen f64 optimum as the per-solve engine — for BOTH transposed
-    kernel variants, picked automatically from the operator structure."""
+def test_batched_route_matches_frozen_golden(cfg):
     from automationlabsmodelpredictivecontrol_jl_tpu import parallel
 
     c = _controller(cfg)
-    op = c.engine.op
-    assert op.diag_a or op.mixed_a  # every golden config hits a v3 kernel
     x0 = _x0(cfg)[None, :]  # batch of 1
-    sol, _, _, diag = parallel.solve_batch_fused(c, x0)
-    assert int(sol.status[0]) == 0
     u_gold = _GOLDEN[cfg["key"] + "__u"]
-    np.testing.assert_allclose(
-        np.asarray(sol.u[0]).T, u_gold, atol=2e-4,
-        err_msg=f"{cfg['key']}: fused kernel drifted off frozen golden",
-    )
+    sols = [parallel.solve_batch_auto(c, x0)[0]]
+    if c.engine.op.diag_a:
+        sols.append(parallel.solve_batch_fused(c, x0, interpret=True)[0])
+    for sol in sols:
+        assert int(sol.status[0]) == 0
+        np.testing.assert_allclose(
+            np.asarray(sol.u[0]).T, u_gold, atol=2e-4,
+            err_msg=f"{cfg['key']}: batched solve drifted off frozen golden",
+        )
 
 
 @pytest.mark.parametrize(

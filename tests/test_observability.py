@@ -10,6 +10,7 @@ stay defensible.
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 
 import automationlabsmodelpredictivecontrol_jl_tpu as mpc
 from automationlabsmodelpredictivecontrol_jl_tpu.benchmarks import qtp
@@ -25,17 +26,22 @@ def _controller(N=20):
     )
 
 
+class _H100:
+    device_kind = "NVIDIA H100 80GB HBM3"
+
+
 def test_speed_of_light_report_invariants():
     c = _controller()
     rep = roofline.speed_of_light(
         c.engine.op, c.engine.config, batch=512,
-        mean_iterations=80.0, measured_time_s=0.01,
+        mean_iterations=80.0, measured_time_s=0.01, device=_H100(),
     )
-    assert rep["bound"] in ("mxu", "hbm")
+    assert rep["bound"] in ("compute", "memory")
+    assert rep["device_kind"] == "NVIDIA H100 80GB HBM3"
     assert 0.0 < rep["sol_fraction"]
     assert rep["roofline_time_s"] > 0.0
-    # padded flops are an upper bound on useful flops (tile padding)
-    assert rep["achieved_padded_tflops"] >= rep["achieved_useful_tflops"] > 0
+    # executed flops bound useful flops (every rho candidate is computed)
+    assert rep["achieved_executed_tflops"] >= rep["achieved_useful_tflops"] > 0
     # mfu is the useful-flops utilization: never above SOL fraction
     assert rep["mfu"] <= rep["sol_fraction"] + 1e-12
 
@@ -43,18 +49,47 @@ def test_speed_of_light_report_invariants():
 def test_speed_of_light_scales_with_time():
     """Half the measured time -> double the achieved flop/s and SOL."""
     c = _controller()
-    r1 = roofline.speed_of_light(c.engine.op, c.engine.config, 512, 80.0, 0.02)
-    r2 = roofline.speed_of_light(c.engine.op, c.engine.config, 512, 80.0, 0.01)
+    r1 = roofline.speed_of_light(c.engine.op, c.engine.config, 512, 80.0, 0.02,
+                                 device=_H100())
+    r2 = roofline.speed_of_light(c.engine.op, c.engine.config, 512, 80.0, 0.01,
+                                 device=_H100())
     np.testing.assert_allclose(r2["sol_fraction"], 2 * r1["sol_fraction"], rtol=1e-9)
     np.testing.assert_allclose(
-        r2["achieved_padded_tflops"], 2 * r1["achieved_padded_tflops"], rtol=1e-9
+        r2["achieved_executed_tflops"], 2 * r1["achieved_executed_tflops"], rtol=1e-9
     )
 
 
 def test_device_peaks_known_and_unknown():
-    peaks = roofline.device_peaks()  # current device (cpu "host" fallback)
-    assert peaks["f32_highest_flops"] > 0
-    assert peaks["hbm_bytes_per_s"] > 0
+    peaks = roofline.device_peaks(_H100())
+    assert peaks["fp32_flops"] == 67e12 and peaks["tf32_flops"] == 495e12
+    assert peaks["bf16_flops"] == 989e12 and peaks["hbm_bytes_per_s"] == 3.35e12
+
+
+def test_device_peaks_unknown_device_raises():
+    """No default peak: the CPU test device, and any kind not in the table,
+    is an error rather than a made-up roofline."""
+    with pytest.raises(ValueError, match="no published peaks"):
+        roofline.device_peaks()  # the tests run on the CPU
+
+    class Other:
+        device_kind = "NVIDIA A100-SXM4-80GB"
+
+    with pytest.raises(ValueError, match="A100"):
+        roofline.device_peaks(Other())
+
+
+def test_roofline_models_the_route():
+    """A box-only operator is modelled on the fused kernel (padded widths,
+    no A-side flops); the same shapes on the vmapped engine count the
+    A-side products and stream the state every iteration."""
+    f = roofline.admm_iteration_model(40, 40, 2, 1024, fused=True)
+    v = roofline.admm_iteration_model(40, 40, 2, 1024, fused=False)
+    assert f["useful_flops"] == 2.0 * 1024 * 40 * 40
+    assert f["executed_flops"] == 2.0 * 1024 * 64 * 2 * 64
+    assert v["useful_flops"] == 2.0 * 1024 * (40 * 40 + 3 * 40 * 40)
+    fb = roofline.admm_bytes_model(40, 40, 1024, 75.0, 25, fused=True)
+    vb = roofline.admm_bytes_model(40, 40, 1024, 75.0, 25, fused=False)
+    assert 0 < fb < vb
 
 
 def test_latency_benchmark_stats():

@@ -1,5 +1,5 @@
 """Parallel layer: vmap batching + shard_map over the 8-device CPU mesh
-(SURVEY §2.10: all-new TPU-native surface; no reference counterpart)."""
+(SURVEY §2.10: all-new surface; no reference counterpart)."""
 
 import jax
 import jax.numpy as jnp
@@ -87,117 +87,99 @@ def riccati_controller():
     )
 
 
-def test_fused_supported_dispatch(controller, riccati_controller):
-    # the module fixture is h5 with the DEFAULT wide-grid + refined config
-    # (R=5, refine=1) on a diag operator: inside the audited small-n vmap
-    # band (r5 routing audit). The lean variant routes fused.
-    assert not parallel.fused_supported(controller)
+def _lean(N=5, **kw):
     from automationlabsmodelpredictivecontrol_jl_tpu.ops.admm import AdmmConfig
 
-    lean = mpc.proceed_controller(
-        qtp.linearized_discrete_system(), "model_predictive_control", 5, 5.0,
+    return mpc.proceed_controller(
+        qtp.linearized_discrete_system(), "model_predictive_control", N, 5.0,
         np.full(4, 0.65), np.full(2, 1.2),
         admm_config=AdmmConfig(rho=1.0, rho_grid=(1.0, 10.0), refine_steps=0),
+        **kw,
     )
-    assert parallel.fused_supported(lean)
-    # the Riccati engine defaults to its (measured-faster) vmapped path;
-    # the Pallas kernel stays reachable via solve_batch_fused / fused=True
-    assert not parallel.fused_supported(riccati_controller)
-    soft = mpc.proceed_controller(
-        qtp.linearized_discrete_system(), "model_predictive_control", 5, 5.0,
-        np.full(4, 0.65), np.full(2, 1.2), mpc_soft_state_constraint=10.0,
-    )
-    assert not parallel.fused_supported(soft)
 
 
-def test_fused_routing_shape_aware():
-    """The measured routing carve-out (TPU v5e table in fused_supported):
-    wide-grid + refined configs in the mid-size band route to the vmapped
-    engine; lean grids and sizes outside the band stay on the fused
-    kernel. solve_batch_auto follows the rule and keeps the solve_batch
-    contract."""
-    from automationlabsmodelpredictivecontrol_jl_tpu.ops.admm import AdmmConfig
-
-    sys = qtp.linearized_discrete_system()
-    mk = lambda N, cfg: mpc.proceed_controller(
-        sys, "model_predictive_control", N, 5.0, np.full(4, 0.65),
-        np.full(2, 1.2), engine="condensed", admm_config=cfg,
-    )
-    wide = AdmmConfig(max_iter=200)  # R=5 grid, refine_steps=1
-    lean = AdmmConfig(max_iter=200, rho=1.0, rho_grid=(1.0, 10.0),
-                      refine_steps=0)
-    # diagonal-A (box-only) operators run the v3 transposed kernel with
-    # their own audited band (r5 routing audit): wide-grid+refined configs
-    # route to vmap at n<=64, fused above; lean configs are always fused
-    c_diag_band = mk(20, wide)  # n=40, R=5/refine=1 -> audited vmap win
-    assert c_diag_band.engine.op.diag_a
-    assert not parallel.fused_supported(c_diag_band)
-    assert parallel.fused_supported(mk(20, lean))  # lean diag: fused
-    assert parallel.fused_supported(mk(50, wide))  # n=100 diag: fused
-    mk_sc = lambda N, cfg: mpc.proceed_controller(
-        sys, "model_predictive_control", N, 5.0, np.full(4, 0.65),
-        np.full(2, 1.2), engine="condensed", admm_config=cfg,
-        mpc_state_constraint=True,
-    )
-    # state-constrained operators are MIXED (diagonal box block + dense
-    # state rows) and run the r5 transposed mixed kernel — measured fused
-    # wins 2.2x over vmap at the old band's shapes, so they route fused
-    c_mixed = mk_sc(20, wide)
-    assert c_mixed.engine.op.mixed_a and not c_mixed.engine.op.diag_a
-    assert parallel.fused_supported(c_mixed)
-    assert parallel.fused_supported(mk_sc(50, wide))
-    assert parallel.fused_supported(mk_sc(5, wide))
-
-    # a vmap-routed case still honors the solve_batch contract through the
-    # auto path (diag wide-grid+refined at small n routes vmap)
+def test_fused_route_off_gpu(controller, riccati_controller):
+    """Off the GPU every engine and config takes the vmapped engine, and
+    solve_batch_auto keeps the solve_batch contract bit for bit."""
+    for c in (controller, riccati_controller, _lean()):
+        assert not parallel.fused_supported(c)
+        assert not parallel.fused_supported(c, "cpu", 16384)
     x0s = _x0_batch(4, seed=3)
-    sol_a, wz_a, wy_a, diag = parallel.solve_batch_auto(c_diag_band, x0s)
-    sol_v, wz_v, wy_v, _ = parallel.solve_batch(c_diag_band, x0s)
+    sol_a, wz_a, wy_a, diag = parallel.solve_batch_auto(controller, x0s)
+    sol_v, wz_v, wy_v, _ = parallel.solve_batch(controller, x0s)
     assert int(diag.n_total) == 4
     np.testing.assert_array_equal(np.asarray(sol_a.u), np.asarray(sol_v.u))
     np.testing.assert_array_equal(np.asarray(wy_a), np.asarray(wy_v))
 
 
-def test_riccati_fused_batch_matches_vmap(riccati_controller):
-    x0s = _x0_batch(8)
-    sol_v, wz_v, wy_v, d_v = parallel.solve_batch(riccati_controller, x0s)
-    sol_f, wz_f, wy_f, d_f = parallel.solve_batch_fused(riccati_controller, x0s)
-    assert int(d_f.n_converged) == int(d_v.n_converged) == 8
-    np.testing.assert_allclose(np.asarray(sol_f.u), np.asarray(sol_v.u), atol=1e-4)
-    np.testing.assert_allclose(np.asarray(wz_f), np.asarray(wz_v), atol=1e-4)
-    np.testing.assert_allclose(np.asarray(wy_f), np.asarray(wy_v), atol=1e-3)
+def test_fused_route_on_gpu(controller, riccati_controller):
+    """On the GPU the kernel takes only lean box-only condensed configs
+    at fleet batches; wide grids, refinement, state rows, soft rows, the
+    Riccati engine and small batches stay on the vmapped engine."""
+    lean = _lean()
+    assert parallel.fused_supported(lean, "gpu")
+    assert parallel.fused_supported(lean, "gpu", parallel.scenarios.FUSED_MIN_BATCH)
+    assert not parallel.fused_supported(
+        lean, "gpu", parallel.scenarios.FUSED_MIN_BATCH - 1
+    )
+    assert not parallel.fused_supported(controller, "gpu")  # R=5, refine 1
+    assert not parallel.fused_supported(riccati_controller, "gpu")
+    assert not parallel.fused_supported(_lean(mpc_state_constraint=True), "gpu")
+    assert not parallel.fused_supported(_lean(mpc_soft_state_constraint=10.0), "gpu")
+    assert not parallel.fused_supported(_lean(N=40), "gpu")  # n=80 > 64
 
 
-@pytest.mark.slow
-def test_riccati_sharded_fused(riccati_controller):
-    """The Riccati engine's fused Pallas kernel still runs inside shard_map
-    when requested explicitly (the vmapped engine is the measured-faster
-    default — see fused_supported)."""
+def test_make_mesh_raises_instead_of_cpu_fallback(monkeypatch):
+    """A one-card GPU host asked for a 4-device mesh raises; it never
+    builds the mesh from CPU devices."""
+
+    class FakeGpu:
+        platform = "gpu"
+
+    monkeypatch.setattr(jax, "devices", lambda *a: [FakeGpu()])
+    with pytest.raises(ValueError, match="1 gpu devices"):
+        parallel.make_mesh(4)
+
+
+def test_riccati_sharded_matches_batch(riccati_controller):
     mesh = parallel.make_mesh(8)
     x0s = _x0_batch(16, seed=3)
-    sol_s, _, _, diag_s = parallel.solve_sharded(
-        riccati_controller, x0s, mesh, fused=True
-    )
-    sol_b, _, _, _ = parallel.solve_batch_fused(riccati_controller, x0s)
-    np.testing.assert_allclose(np.asarray(sol_s.u), np.asarray(sol_b.u), atol=2e-4)
+    sol_s, wz_s, wy_s, diag_s = parallel.solve_sharded(riccati_controller, x0s, mesh)
+    sol_b, wz_b, wy_b, diag_b = parallel.solve_batch(riccati_controller, x0s)
+    np.testing.assert_allclose(np.asarray(sol_s.u), np.asarray(sol_b.u), atol=1e-4)
+    np.testing.assert_allclose(np.asarray(wz_s), np.asarray(wz_b), atol=1e-4)
+    np.testing.assert_allclose(np.asarray(wy_s), np.asarray(wy_b), atol=1e-3)
     assert int(diag_s.n_total) == 16
-    assert int(diag_s.n_converged) == 16
+    assert int(diag_s.n_converged) == int(diag_b.n_converged) == 16
 
 
-@pytest.mark.slow
-def test_condensed_sharded_fused_matches_general(controller):
-    """The condensed engine's sharded path also rides the fused kernel by
-    default and must agree with the general engine."""
+def test_riccati_sharded_diagnostics_psum(riccati_controller):
+    """The psum/pmax fleet diagnostics of the sharded Riccati solve equal
+    the single-device batch diagnostics."""
+    mesh = parallel.make_mesh(4)
+    x0s = _x0_batch(8, seed=5)
+    _, _, _, d_s = parallel.solve_sharded(riccati_controller, x0s, mesh)
+    _, _, _, d_b = parallel.solve_batch(riccati_controller, x0s)
+    assert int(d_s.n_total) == int(d_b.n_total) == 8
+    assert int(d_s.max_iterations) == int(d_b.max_iterations)
+    np.testing.assert_allclose(
+        float(d_s.mean_iterations), float(d_b.mean_iterations), rtol=1e-6
+    )
+
+
+def test_condensed_sharded_route_matches_general(controller):
+    """The sharded condensed solve on a CPU mesh takes the vmapped engine by
+    default and agrees with the explicit fused=False path."""
     mesh = parallel.make_mesh(8)
     x0s = _x0_batch(16, seed=4)
-    sol_f, _, _, d_f = parallel.solve_sharded(controller, x0s, mesh, fused=True)
+    sol_a, _, _, d_a = parallel.solve_sharded(controller, x0s, mesh)
     sol_g, _, _, d_g = parallel.solve_sharded(controller, x0s, mesh, fused=False)
-    np.testing.assert_allclose(np.asarray(sol_f.u), np.asarray(sol_g.u), atol=5e-4)
-    assert int(d_f.n_converged) == 16
+    np.testing.assert_array_equal(np.asarray(sol_a.u), np.asarray(sol_g.u))
+    assert int(d_a.n_converged) == 16
 
 
 def test_escalated_solver_closes_tail():
-    """Two-tier fleet solve: a deliberately starved fused config leaves
+    """Two-tier fleet solve: a deliberately starved config leaves
     MAX_ITER stragglers; make_escalated_solver re-dispatches exactly those
     lanes to the full-rho-grid fallback and the merged batch converges
     (VERDICT r1 item 7: kill the non-converged tail)."""
@@ -210,7 +192,7 @@ def test_escalated_solver_closes_tail():
         admm_config=AdmmConfig(max_iter=30, rho=100.0, rho_grid=(100.0,)),
     )
     x0s = _x0_batch(32, seed=7)
-    _, _, _, diag0 = parallel.solve_batch_fused(starved, x0s)
+    _, _, _, diag0 = parallel.solve_batch_auto(starved, x0s)
     assert int(diag0.n_max_iter) > 0, "config must actually starve some lanes"
 
     esc = parallel.make_escalated_solver(starved)
@@ -228,7 +210,7 @@ def test_escalated_solver_noop_when_converged(controller):
     x0s = _x0_batch(8, seed=8)
     esc = parallel.make_escalated_solver(controller)
     sol, _, _, diag = esc(x0s)
-    sol_f, _, _, diag_f = parallel.solve_batch_fused(controller, x0s)
+    sol_f, _, _, diag_f = parallel.solve_batch_auto(controller, x0s)
     # (atol: the solver's own jit and the test's separately-jitted call can
     # fuse differently at f32)
     np.testing.assert_allclose(np.asarray(sol.u), np.asarray(sol_f.u), atol=1e-5)
@@ -240,16 +222,19 @@ def test_roofline_model_sanity(controller):
     >= useful, and sol_fraction scales inversely with measured time."""
     from automationlabsmodelpredictivecontrol_jl_tpu.utils import roofline
 
+    class H100:
+        device_kind = "NVIDIA H100 80GB HBM3"
+
     op = controller.engine.op
     cfg = controller.engine.config
-    it = roofline.admm_iteration_model(
-        int(op.K_invs.shape[1]), int(op.A_s.shape[0]), int(op.rho_grid.shape[0])
-    )
-    assert it["padded_flops"] >= it["useful_flops"] > 0
-    r1 = roofline.speed_of_light(op, cfg, 256, 50.0, 0.1)
-    r2 = roofline.speed_of_light(op, cfg, 256, 50.0, 0.2)
+    n, m, R = int(op.K_invs.shape[1]), int(op.A_s.shape[0]), int(op.rho_grid.shape[0])
+    for fused in (False, True):
+        it = roofline.admm_iteration_model(n, m, R, 256, fused=fused)
+        assert it["executed_flops"] >= it["useful_flops"] > 0
+    r1 = roofline.speed_of_light(op, cfg, 256, 50.0, 0.1, device=H100())
+    r2 = roofline.speed_of_light(op, cfg, 256, 50.0, 0.2, device=H100())
     assert r1["sol_fraction"] == pytest.approx(2 * r2["sol_fraction"])
-    assert r1["bound"] in ("mxu", "hbm")
+    assert r1["bound"] in ("compute", "memory")
     assert r1["mfu"] > 0
 
 

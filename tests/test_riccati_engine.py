@@ -39,8 +39,8 @@ def test_design_routes_riccati():
     sys = qtp.linearized_discrete_system()
     c = mpc.design_controller(sys, 10, 5.0, X_REF, U_REF, engine="riccati")
     assert isinstance(c.engine, mpc.RiccatiEngine)
-    # auto crossover: horizons past the MEASURED threshold (design.py
-    # RICCATI_AUTO_HORIZON = 500, TPU v5e data) get the sparse engine
+    # auto crossover: horizons past the threshold (design.py
+    # RICCATI_AUTO_HORIZON = 500) get the sparse engine
     c_long = mpc.design_controller(
         sys, mpc.design.RICCATI_AUTO_HORIZON + 10, 5.0, X_REF, U_REF
     )
